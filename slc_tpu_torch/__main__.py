@@ -1,0 +1,225 @@
+"""Command-line interface (PyTorch port of slc_tpu/__main__.py:201-413).
+
+``python -m slc_tpu_torch run``   — replay reconstruction (main.cpp:42-45)
+``python -m slc_tpu_torch synth`` — render a synthetic replay dataset
+
+The flags are slc_tpu's, plus ``--device`` (default ``cuda``). Flags for
+what is not ported yet are rejected with an error, never ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+
+
+def _add_cfg_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--cam", default=None,
+                   help="camera resolution HxW (default: reference "
+                        "1024x1280, StaticParameters.cpp:8-9)")
+    p.add_argument("--pro", default=None, help="projector resolution HxW")
+    p.add_argument("--gray-bits", type=int, default=None)
+    p.add_argument("--phase-steps", type=int, default=None)
+
+
+def _explicit_cfg_updates(args) -> dict:
+    updates = {}
+    if args.cam:
+        h, w = (int(v) for v in args.cam.split("x"))
+        updates.update(cam_h=h, cam_w=w)
+    if args.pro:
+        h, w = (int(v) for v in args.pro.split("x"))
+        updates.update(pro_h=h, pro_w=w)
+    if args.gray_bits is not None:
+        updates.update(gray_bits=args.gray_bits)
+    if args.phase_steps is not None:
+        updates.update(phase_steps=args.phase_steps)
+    return updates
+
+
+def _build_cfg(args, manifest=None):
+    """REFERENCE_CONFIG <- dataset manifest <- explicit flags, with a
+    clear error when a flag contradicts what the dataset records."""
+    from slc_tpu_torch.config import REFERENCE_CONFIG
+    from_manifest = {}
+    if manifest:
+        for key in ("cam_h", "cam_w", "pro_h", "pro_w", "gray_bits",
+                    "phase_steps"):
+            if manifest.get(key) is not None:
+                from_manifest[key] = manifest[key]
+    explicit = _explicit_cfg_updates(args)
+    for k, v in explicit.items():
+        if k in from_manifest and from_manifest[k] != v:
+            raise SystemExit(
+                f"--{k.replace('_', '-')}={v} conflicts with the dataset "
+                f"manifest ({k}={from_manifest[k]}); drop the flag or "
+                f"regenerate the dataset")
+    updates = {**from_manifest, **explicit}
+    return (dataclasses.replace(REFERENCE_CONFIG, **updates)
+            if updates else REFERENCE_CONFIG)
+
+
+def _not_ported(ap: argparse.ArgumentParser, args) -> None:
+    """Reject the flags of features slc_tpu has and this port has not."""
+    if args.cmd == "run":
+        bad = []
+        if args.mode != "gray":
+            bad.append(f"--mode {args.mode}")
+        if args.chunk != 1:
+            bad.append(f"--chunk {args.chunk}")
+        for flag in ("fast_subpixel", "preview", "save_depth"):
+            if getattr(args, flag):
+                bad.append("--" + flag.replace("_", "-"))
+    else:
+        bad = ["--fringes"] if args.fringes else []
+    if bad:
+        ap.error(f"{', '.join(bad)}: not ported to slc_tpu_torch yet "
+                 f"(use python -m slc_tpu)")
+
+
+def _cmd_synth(args, cfg) -> int:
+    from slc_tpu_torch import synth
+    from slc_tpu_torch.calib import synthetic_calibration
+    from slc_tpu_torch.io.dataset import (write_anchor_group,
+                                          write_replay_dataset)
+    from slc_tpu_torch.io.opencv_yaml import save_calibration
+    calib = synthetic_calibration(cam_h=cfg.cam_h, cam_w=cfg.cam_w,
+                                  pro_h=cfg.pro_h, pro_w=cfg.pro_w)
+    surface = (synth.sphere_surface() if args.scene == "sphere"
+               else synth.plane_surface(50.0))
+    scene = synth.render_static_scene(calib, cfg, surface,
+                                      noise_sigma=args.noise)
+    frames = None
+    dz = 0.08
+    stripe_period = 12
+    if args.frames:
+        # Move the DECODED scene along +z, so frame 0 stays consistent
+        # with the absolute decode (slc_tpu/__main__.py:348-357).
+        frames, _, _ = synth.render_dynamic_sequence(
+            calib, cfg, args.frames, z0=50.0, dz_per_frame=dz,
+            stripe_period=stripe_period, noise_sigma=args.noise,
+            surface_for_frame=(
+                lambda f: synth.offset_surface(surface, dz * f)))
+    write_replay_dataset(args.out, scene.gray_images, scene.phase_images,
+                         frames, None,
+                         config_fields={
+                             "pro_h": cfg.pro_h, "pro_w": cfg.pro_w,
+                             "gray_bits": cfg.gray_bits,
+                             "phase_steps": cfg.phase_steps,
+                             "scene": args.scene,
+                             "noise_sigma": args.noise,
+                             "anchor_every": args.anchor_every,
+                             "stripe_period": stripe_period,
+                         })
+    if args.anchor_every:
+        for f in range(args.anchor_every, args.frames, args.anchor_every):
+            asc = synth.render_static_scene(
+                calib, cfg, synth.offset_surface(surface, f * dz),
+                noise_sigma=args.noise, seed=f + 1)
+            write_anchor_group(args.out, f, asc.gray_images,
+                               asc.phase_images)
+    os.makedirs(args.out, exist_ok=True)
+    save_calibration(os.path.join(args.out, "parameters.yml"), calib)
+    print(f"wrote dataset to {args.out} "
+          f"({2 * cfg.gray_bits} gray + {cfg.phase_steps} phase + "
+          f"{args.frames} dynamic frames, calib parameters.yml)")
+    return 0
+
+
+def _cmd_run(args, cfg) -> int:
+    from slc_tpu_torch.runner import run_replay
+    ref = args.reference_semantics
+    if args.phase_lock in ("auto", "off"):
+        lock = None if args.phase_lock == "off" else "auto"
+    else:
+        lock = float(args.phase_lock)
+    report = run_replay(
+        args.dataset, args.calib, args.out, cfg, device=args.device,
+        max_frames=args.max_frames, write_clouds=not args.no_clouds,
+        checkpoint_every=args.checkpoint_every, resume=args.resume,
+        scale_gradient=not ref, subpixel=not ref, robust=not ref,
+        mode=args.mode, phase_lock=None if ref else lock,
+        refine_period=args.refine_period,
+        out_format=args.out_format, stream=not args.strict_loop)
+    last = report.metrics.records[-1] if report.metrics.records else {}
+    print(f"done: frames={report.frames_done} "
+          f"first_frame_points={report.first_frame_points} "
+          f"last_valid_frac={last.get('valid_frac', 0):.3f}")
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="slc_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    runp = sub.add_parser("run", help="replay reconstruction")
+    runp.add_argument("dataset", help="dataset root (iFrame/, cFrame/)")
+    runp.add_argument("--calib", required=True,
+                      help="OpenCV-YAML calibration (CamMat/ProMat/R/T)")
+    runp.add_argument("--out", default="out")
+    runp.add_argument("--device", default="cuda",
+                      help="torch device: 'cuda' (default; raises "
+                           "without CUDA) or 'cpu'")
+    runp.add_argument("--max-frames", type=int, default=None)
+    runp.add_argument("--no-clouds", action="store_true")
+    runp.add_argument("--checkpoint-every", type=int, default=0)
+    runp.add_argument("--resume", action="store_true")
+    runp.add_argument("--reference-semantics", action="store_true",
+                      help="disable subpixel tracking, gradient scaling, "
+                           "the robust deltaP combine and the phase lock "
+                           "(exact CCalculation.cpp:595-660 behavior)")
+    runp.add_argument("--mode", choices=["gray", "heterodyne", "spatial"],
+                      default="gray",
+                      help="frame-0 absolute decode method (only 'gray' "
+                           "is ported)")
+    runp.add_argument("--save-depth", action="store_true",
+                      help="not ported yet")
+    runp.add_argument("--preview", action="store_true",
+                      help="not ported yet")
+    runp.add_argument("--phase-lock", default="auto",
+                      help="'auto' (default: lock to the manifest's "
+                           "stripe_period), 'off', or an explicit "
+                           "stripe period in projector px")
+    runp.add_argument("--refine-period", action="store_true",
+                      help="adopt the carrier period measured from the "
+                           "first dynamic frame")
+    runp.add_argument("--out-format", choices=["xyz", "npz"],
+                      default="xyz",
+                      help="per-frame cloud format: reference-format "
+                           "ASCII or float32 npz maps")
+    runp.add_argument("--chunk", type=int, default=1,
+                      help="frames per dispatch; only 1 is ported")
+    runp.add_argument("--fast-subpixel", action="store_true",
+                      help="not ported yet")
+    runp.add_argument("--strict-loop", action="store_true",
+                      help="synchronous read->step->write loop instead "
+                           "of read-ahead + background writer")
+    _add_cfg_args(runp)
+
+    sy = sub.add_parser("synth", help="render a synthetic replay dataset")
+    sy.add_argument("out", help="dataset root to create")
+    sy.add_argument("--frames", type=int, default=8)
+    sy.add_argument("--noise", type=float, default=1.0)
+    sy.add_argument("--scene", choices=["plane", "sphere"], default="sphere")
+    sy.add_argument("--fringes", action="store_true", help="not ported yet")
+    sy.add_argument("--anchor-every", type=int, default=0,
+                    help="write absolute re-anchoring pattern groups "
+                         "(aFrame{f}/) every K dynamic frames")
+    _add_cfg_args(sy)
+
+    args = ap.parse_args(argv)
+    _not_ported(ap, args)
+
+    manifest = None
+    if args.cmd == "run":
+        from slc_tpu_torch.io.dataset import load_manifest
+        manifest = load_manifest(args.dataset)
+    cfg = _build_cfg(args, manifest)
+    if args.cmd == "synth":
+        return _cmd_synth(args, cfg)
+    return _cmd_run(args, cfg)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,9 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their plain PyTorch
+versions.
+
+Each module holds one kernel's wrapper (``*_cuda``, with a ``launches``
+count), its plain version (``*_ref``) and the public function that
+dispatches on the device: CPU tensors take the plain version, CUDA
+tensors the kernel. The CUDA sources live in ``csrc/`` and are built by
+:mod:`slc_tpu_torch.kernels._build` at first use.
+"""

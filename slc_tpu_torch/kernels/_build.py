@@ -1,0 +1,168 @@
+"""Build and load the hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` file (plus the shared ``csrc/*.cuh`` headers) is
+compiled by ``nvcc`` into ONE shared library with a plain C interface,
+loaded through ``ctypes``. The build runs at first use, never at import,
+so the package imports on a machine without ``nvcc``. The library lands
+in ``kernels/build/`` under a name keyed by a hash of the sources and
+flags, so editing a source rebuilds it. A failed build raises with
+nvcc's stderr: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Optional
+
+import torch
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_DIR, "csrc")
+_BUILD = os.path.join(_DIR, "build")
+
+#: No --use_fast_math: the kernels rely on IEEE division and sqrt.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_vp = ctypes.c_void_p
+_i = ctypes.c_int
+_f = ctypes.c_float
+
+#: C signatures: every pointer and the stream as c_void_p, so ctypes
+#: passes 64-bit values; every function returns a cudaError_t.
+_SIGNATURES = {
+    # gray, phase, x, y, z, pu, h, w, gray_bits, n_steps, gray_period,
+    # phase_period, use_mod, min_mod_sq, tri (host float[14]), stream
+    "slc_grayphase": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _f,
+                      _i, _f, _vp, _vp],
+    # frame, strip_w, strip_b, h, w, window, subpixel, stream
+    "slc_stripe": [_vp, _vp, _vp, _i, _i, _i, _i, _vp],
+    # frame, prev_sw, prev_sb, prev_pu, pu, sw, sb, z, x, y, h, w, window,
+    # subpixel, scale_gradient, robust, tri, stream
+    "slc_dynamic_step": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                         _i, _i, _i, _i, _i, _i, _vp, _vp],
+    # frame, prev_sw, prev_sb, prev_pu, pu, sw, sb, z, x, y, scratch,
+    # wu, wv, h, w, window, subpixel, scale_gradient, robust, period,
+    # win_u, win_v, amp_floor, gate_on, gate_thresh, gate_band, tri,
+    # stream
+    "slc_dynamic_step_lock": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                              _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
+                              _f, _i, _i, _f, _i, _f, _i, _vp, _vp],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH, else the
+    toolkit's conventional home ``/usr/local/cuda``."""
+    home = os.environ.get("CUDA_HOME")
+    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found ($CUDA_HOME/bin/nvcc, PATH, /usr/local/cuda): "
+        "the CUDA kernels cannot be built")
+
+
+def sources() -> list:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def _library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(glob.glob(os.path.join(_CSRC, "*.cu*"))):
+        h.update(os.path.basename(p).encode())
+        with open(p, "rb") as f:
+            h.update(f.read())
+    return os.path.join(_BUILD, f"libslc_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the library if no build of the current sources exists;
+    return its path. Raises RuntimeError with nvcc's stderr on
+    failure."""
+    path = _library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(_BUILD, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stderr}")
+    os.replace(tmp, path)             # atomic: concurrent builders agree
+    return path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            l = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(l, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            l.slc_error_string.argtypes = [_i]
+            l.slc_error_string.restype = ctypes.c_char_p
+            l.slc_dynamic_step_lock_scratch.argtypes = [_i, _i, _i]
+            l.slc_dynamic_step_lock_scratch.restype = ctypes.c_long
+            _lib = l
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point returned a non-zero cudaError_t."""
+    if err != 0:
+        msg = lib().slc_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def require(t, name: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``
+    on the CUDA ``device``: what a kernel takes, nothing else."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes cuda tensors, got one "
+                         f"on {t.device}")
+    if t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got "
+                         f"{t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def stream_of(device) -> int:
+    """The current PyTorch stream of ``device``, as the C functions take
+    it."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def tri_array(coeffs, fov_min: float, fov_max: float):
+    """The host float[14] of triangulation constants (see Tri in
+    csrc/common.cuh). Keep it referenced for the duration of the call."""
+    vals = tuple(coeffs) + (fov_min, fov_max)
+    assert len(vals) == 14, len(vals)
+    return (ctypes.c_float * 14)(*vals)

@@ -1,0 +1,227 @@
+"""The dynamic tracking step, open loop and phase-locked.
+
+Source note. ``dynamic_step_open_cuda`` replaces
+slc_tpu/pallas/dynamic_step.py:166 ``dynamic_step_pallas``;
+``dynamic_step_lock_cuda`` replaces slc_tpu/pallas/dynamic_lock.py:297
+``dynamic_step_lock_pallas``. Both steps move 37 B/px (frame u8 + carried
+strips and P in, P, strips, z, x, y out), so device memory is their floor.
+The open-loop step is one launch: stripe tracking on a 2-D tile with a
+1 px halo, deltaP select, 3x3 mean, gradient scale, integration and
+triangulation, all in shared memory and registers. The locked step adds
+the lock-in demodulation, whose triangle filters reach up to 2*win_u - 1
+columns and whose carrier gate spans whole 64-row bands; it runs as seven
+launches that pass full-image maps through device memory (they stay in
+L2 at the reference size): track, row and column triangle passes for the
+DC and then for the quadrature products, a finish pass that writes the
+correction and per-band gate partials, and a snap pass that reduces each
+band's partials in a fixed order, gates, corrects and triangulates.
+
+Precondition of the kernels: the carried strips are zero within
+window//2 px of the image border, as every tracker state is (the stripe
+regression masks its border). The kernels pad the 3x3 mean and the
+gradient with zeros where the plain path reflects and wraps; the two
+agree only under this precondition (slc_tpu tests/test_pallas.py:39-45).
+
+Each public function dispatches on the device of the frame: CPU tensors
+take the plain PyTorch version (the composite of slc_tpu/dynamic.py:
+183-202), CUDA tensors the kernel (or it raises). Every call returns
+freshly allocated maps; the carried state is never updated in place.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Tuple
+
+import torch
+
+from slc_tpu_torch.calib import TriangulationTables
+from slc_tpu_torch.kernels import _build
+from slc_tpu_torch.kernels.stripe import check_window, stripe_regression_ref
+from slc_tpu_torch.ops.demod import (GATE_BAND, stripe_phase_correction,
+                                     tri_weights_1d)
+from slc_tpu_torch.ops.filters import box_blur_3x3
+from slc_tpu_torch.ops.stripe import select_delta_p
+from slc_tpu_torch.ops.triangulate import triangulate_xyz
+
+#: (proj_u, strip_w, strip_b, z, x, y), each (H, W) float32.
+StepMaps = Tuple[torch.Tensor, ...]
+
+
+def _track_ref(frame, prev_sw, prev_sb, prev_pu, window, subpixel,
+               scale_gradient, robust):
+    """Stripe track -> deltaP select -> 3x3 mean -> gradient scale ->
+    P integration (slc_tpu/dynamic.py:183-193)."""
+    sw, sb = stripe_regression_ref(frame, window, subpixel)
+    dp = box_blur_3x3(select_delta_p(prev_sw, prev_sb, sw, sb,
+                                     robust=robust))
+    if scale_gradient:
+        g = 0.5 * (torch.roll(prev_pu, -1, dims=1)
+                   - torch.roll(prev_pu, 1, dims=1))
+        dp = dp * g.clamp(0.2, 5.0)
+    return prev_pu + dp, sw, sb
+
+
+def dynamic_step_open_ref(frame: torch.Tensor, prev_sw: torch.Tensor,
+                          prev_sb: torch.Tensor, prev_pu: torch.Tensor,
+                          tables: TriangulationTables, *, window: int = 21,
+                          subpixel: bool = True, scale_gradient: bool = True,
+                          robust: bool = True, fov_min: float = 10.0,
+                          fov_max: float = 100.0,
+                          frac_bits: int = 0) -> StepMaps:
+    """Plain PyTorch open-loop step. ``frac_bits`` is ignored: the plain
+    path is always exact, as slc_tpu's XLA path is."""
+    pu, sw, sb = _track_ref(frame, prev_sw, prev_sb, prev_pu, window,
+                            subpixel, scale_gradient, robust)
+    x, y, z = triangulate_xyz(pu, tables, fov_min, fov_max)
+    return pu, sw, sb, z, x, y
+
+
+def dynamic_step_lock_ref(frame: torch.Tensor, prev_sw: torch.Tensor,
+                          prev_sb: torch.Tensor, prev_pu: torch.Tensor,
+                          tables: TriangulationTables, *, window: int = 21,
+                          subpixel: bool = True, scale_gradient: bool = True,
+                          robust: bool = True, fov_min: float = 10.0,
+                          fov_max: float = 100.0, period: float = 12.0,
+                          win_u: int = 21, win_v: int = 9,
+                          amp_floor: float = 8.0,
+                          max_carrier_gradient: float = 2e-3,
+                          frac_bits: int = 0) -> StepMaps:
+    """Plain PyTorch locked step: the open-loop integration, then the
+    lock-in correction (slc_tpu/dynamic.py:194-198)."""
+    pu, sw, sb = _track_ref(frame, prev_sw, prev_sb, prev_pu, window,
+                            subpixel, scale_gradient, robust)
+    dpl, _ = stripe_phase_correction(frame, pu, period, win_u, win_v,
+                                     amp_floor=amp_floor,
+                                     max_carrier_gradient=max_carrier_gradient)
+    pu = pu + dpl
+    x, y, z = triangulate_xyz(pu, tables, fov_min, fov_max)
+    return pu, sw, sb, z, x, y
+
+
+def _check_inputs(frame, prev_sw, prev_sb, prev_pu, tables, window,
+                  frac_bits):
+    check_window(window)
+    if frac_bits:
+        raise ValueError("frac_bits > 0 (fast sub-pixel) is not ported: "
+                         "the kernels compute the exact fraction only")
+    if frame.ndim != 2 or frame.numel() == 0:
+        raise ValueError(f"frame: expected a non-empty (H, W) tensor, got "
+                         f"{tuple(frame.shape)}")
+    dev = frame.device
+    h, w = frame.shape
+    _build.require(frame, "frame", torch.uint8, (h, w), dev)
+    for name, t in (("prev_sw", prev_sw), ("prev_sb", prev_sb),
+                    ("prev_pu", prev_pu), ("tables.c", tables.c)):
+        _build.require(t, name, torch.float32, (h, w), dev)
+    return dev, h, w
+
+
+def _empty_maps(h, w, dev):
+    return tuple(torch.empty((h, w), dtype=torch.float32, device=dev)
+                 for _ in range(6))
+
+
+def dynamic_step_open_cuda(frame: torch.Tensor, prev_sw: torch.Tensor,
+                           prev_sb: torch.Tensor, prev_pu: torch.Tensor,
+                           tables: TriangulationTables, *, window: int = 21,
+                           subpixel: bool = True,
+                           scale_gradient: bool = True, robust: bool = True,
+                           fov_min: float = 10.0, fov_max: float = 100.0,
+                           frac_bits: int = 0) -> StepMaps:
+    """The hand-written open-loop kernel (one launch). Inputs: u8 frame
+    and float32 carried maps, contiguous (H, W) on one CUDA device."""
+    dev, h, w = _check_inputs(frame, prev_sw, prev_sb, prev_pu, tables,
+                              window, frac_bits)
+    pu, sw, sb, z, x, y = out = _empty_maps(h, w, dev)
+    tri = _build.tri_array(tables.coeffs, fov_min, fov_max)
+    err = _build.lib().slc_dynamic_step(
+        frame.data_ptr(), prev_sw.data_ptr(), prev_sb.data_ptr(),
+        prev_pu.data_ptr(), pu.data_ptr(), sw.data_ptr(), sb.data_ptr(),
+        z.data_ptr(), x.data_ptr(), y.data_ptr(), h, w, window,
+        int(subpixel), int(scale_gradient), int(robust), tri,
+        _build.stream_of(dev))
+    dynamic_step_open_cuda.launches += 1
+    _build.check(err, "slc_dynamic_step")
+    return out
+
+
+dynamic_step_open_cuda.launches = 0
+
+
+@functools.lru_cache(maxsize=8)
+def _tri_weights(h: int, w: int, win_u: int, win_v: int, device
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact in-image triangle weights wu (W,) and wv (H,), once per
+    shape."""
+    return (torch.from_numpy(tri_weights_1d(w, win_u)).to(device),
+            torch.from_numpy(tri_weights_1d(h, win_v)).to(device))
+
+
+def dynamic_step_lock_cuda(frame: torch.Tensor, prev_sw: torch.Tensor,
+                           prev_sb: torch.Tensor, prev_pu: torch.Tensor,
+                           tables: TriangulationTables, *, window: int = 21,
+                           subpixel: bool = True,
+                           scale_gradient: bool = True, robust: bool = True,
+                           fov_min: float = 10.0, fov_max: float = 100.0,
+                           period: float = 12.0, win_u: int = 21,
+                           win_v: int = 9, amp_floor: float = 8.0,
+                           max_carrier_gradient: float = 2e-3,
+                           frac_bits: int = 0) -> StepMaps:
+    """The hand-written locked step (seven launches, see the module
+    note). ``max_carrier_gradient`` 0 or inf turns the gate off, as in
+    slc_tpu/ops/demod.py:204 (not the inverted reading of the TPU
+    kernels). Gate bands are GATE_BAND rows, aligned to row 0."""
+    dev, h, w = _check_inputs(frame, prev_sw, prev_sb, prev_pu, tables,
+                              window, frac_bits)
+    for name, win in (("win_u", win_u), ("win_v", win_v)):
+        if win % 2 == 0 or not 3 <= win <= 63:
+            raise ValueError(f"{name} must be odd in [3, 63], got {win}")
+    if not (period > 0 and math.isfinite(period)):
+        raise ValueError(f"period must be positive and finite, got "
+                         f"{period}")
+    gate_on = bool(max_carrier_gradient) and math.isfinite(
+        max_carrier_gradient)
+    lib = _build.lib()
+    pu, sw, sb, z, x, y = out = _empty_maps(h, w, dev)
+    scratch = torch.empty(
+        lib.slc_dynamic_step_lock_scratch(h, w, GATE_BAND),
+        dtype=torch.float32, device=dev)
+    wu, wv = _tri_weights(h, w, win_u, win_v, dev)
+    tri = _build.tri_array(tables.coeffs, fov_min, fov_max)
+    err = lib.slc_dynamic_step_lock(
+        frame.data_ptr(), prev_sw.data_ptr(), prev_sb.data_ptr(),
+        prev_pu.data_ptr(), pu.data_ptr(), sw.data_ptr(), sb.data_ptr(),
+        z.data_ptr(), x.data_ptr(), y.data_ptr(), scratch.data_ptr(),
+        wu.data_ptr(), wv.data_ptr(), h, w, window, int(subpixel),
+        int(scale_gradient), int(robust), float(period), win_u, win_v,
+        float(amp_floor), int(gate_on),
+        float(max_carrier_gradient) if gate_on else 0.0, GATE_BAND, tri,
+        _build.stream_of(dev))
+    dynamic_step_lock_cuda.launches += 1
+    _build.check(err, "slc_dynamic_step_lock")
+    return out
+
+
+dynamic_step_lock_cuda.launches = 0
+
+
+def dynamic_step_open(frame: torch.Tensor, prev_sw: torch.Tensor,
+                      prev_sb: torch.Tensor, prev_pu: torch.Tensor,
+                      tables: TriangulationTables, **kw) -> StepMaps:
+    """Open-loop step: CPU tensors take the plain version, anything
+    else the kernel. Returns (proj_u, strip_w, strip_b, z, x, y)."""
+    fn = (dynamic_step_open_ref if frame.device.type == "cpu"
+          else dynamic_step_open_cuda)
+    return fn(frame, prev_sw, prev_sb, prev_pu, tables, **kw)
+
+
+def dynamic_step_lock(frame: torch.Tensor, prev_sw: torch.Tensor,
+                      prev_sb: torch.Tensor, prev_pu: torch.Tensor,
+                      tables: TriangulationTables, **kw) -> StepMaps:
+    """Phase-locked step: CPU tensors take the plain version, anything
+    else the kernel. Returns (proj_u, strip_w, strip_b, z, x, y)."""
+    fn = (dynamic_step_lock_ref if frame.device.type == "cpu"
+          else dynamic_step_lock_cuda)
+    return fn(frame, prev_sw, prev_sb, prev_pu, tables, **kw)

@@ -1,0 +1,101 @@
+"""Structured per-frame metrics and stage timing (PyTorch port of
+slc_tpu/metrics.py).
+
+Every frame yields a record (valid-pixel fraction, z range, wall-clock
+fps) and stages are timed under ``torch.profiler.record_function``
+annotations, so a profiler trace shows them by name.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+
+def frame_stats(z: torch.Tensor) -> Dict[str, float]:
+    """Per-frame stats of a depth map (z > 0 is valid), reduced on the
+    device and read back in one transfer."""
+    valid = z > 0
+    any_valid = valid.any()
+    zero = torch.zeros((), dtype=z.dtype, device=z.device)
+    stats = torch.stack([
+        valid.float().mean(),
+        torch.where(any_valid, torch.where(valid, z, torch.inf).min(),
+                    zero),
+        torch.where(any_valid, torch.where(valid, z, -torch.inf).max(),
+                    zero),
+        torch.where(valid, z, zero).sum()
+        / valid.sum().clamp(min=1).to(z.dtype),
+    ]).tolist()
+    return dict(zip(("valid_frac", "z_min", "z_max", "z_mean"), stats))
+
+
+@dataclasses.dataclass
+class MetricsLog:
+    """Accumulates per-frame records; writes JSON lines.
+
+    Stage timings recorded via :func:`stage` between two ``log_frame``
+    calls are folded into the next frame's record as ``t_<stage>_ms``
+    (and ``gbps_<stage>`` when the bytes moved are known).
+    """
+
+    records: List[dict] = dataclasses.field(default_factory=list)
+    #: Run-level summary records (the async writer's totals, the period
+    #: diagnostic); written after the frame records.
+    summaries: List[dict] = dataclasses.field(default_factory=list)
+    _t_last: Optional[float] = None
+    _pending_stages: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+
+    def log_stage(self, name: str, wall_s: float,
+                  bytes_moved: Optional[int] = None) -> None:
+        """Record one stage timing, attached to the next log_frame."""
+        short = name.rsplit("/", 1)[-1]
+        entry = {f"t_{short}_ms": round(wall_s * 1e3, 3)}
+        if bytes_moved is not None and wall_s > 0:
+            gbps = bytes_moved / wall_s / 1e9
+            entry[f"gbps_{short}"] = float(f"{gbps:.3g}")
+        self._pending_stages.update(entry)
+
+    def log_frame(self, frame_idx: int, stats: Dict[str, float],
+                  **extra) -> dict:
+        now = time.perf_counter()
+        fps = (1.0 / (now - self._t_last)
+               if self._t_last is not None else None)
+        self._t_last = now
+        rec = {"frame": int(frame_idx),
+               **{k: float(v) for k, v in stats.items()},
+               **self._pending_stages,
+               **extra}
+        self._pending_stages = {}
+        if fps is not None:
+            rec["fps"] = round(fps, 2)
+        self.records.append(rec)
+        return rec
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            for rec in self.records + self.summaries:
+                f.write(json.dumps(rec) + "\n")
+
+
+@contextlib.contextmanager
+def stage(name: str, log: Optional[MetricsLog] = None,
+          bytes_moved: Optional[int] = None, device=None):
+    """Profiler annotation + wall clock. On a CUDA ``device`` the block
+    ends with ``torch.cuda.synchronize``, so the wall time covers the
+    device work launched inside it, not just its enqueueing."""
+    device = torch.device(device) if device is not None else None
+    with torch.profiler.record_function(name):
+        t0 = time.perf_counter()
+        yield
+        if device is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    if log is not None:
+        log.log_stage(name, wall, bytes_moved)

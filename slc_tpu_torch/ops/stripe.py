@@ -1,0 +1,123 @@
+"""Stripe-extremum tracking for dynamic frames: the plain PyTorch
+composite (port of slc_tpu/ops/stripe.py). The hand-written kernel and
+the dispatching ``stripe_regression`` live in
+:mod:`slc_tpu_torch.kernels.stripe`.
+
+Reference behavior (DynaFrame/CCalculation.cpp:789-891), per frame:
+
+1. ``valSum(h, w)``: vertical 21-row box sum of the raw camera image per
+   column on the interior [r, H-r) x [r, W-r), r = window//2; zero
+   elsewhere (CCalculation.cpp:797-823).
+2. Per interior pixel, scan horizontal offsets i in [-r, r) (+r is
+   EXCLUDED) over valSum(h, w+i), tracking a running max and min that
+   start at the center value and update on strict inequality
+   (CCalculation.cpp:828-850): the center wins any tie, otherwise the
+   smallest offset attaining the extremum. The offsets are stripW
+   (bright) and stripB (dark), zero on the border.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def _interior(h: int, w: int, r: int, device) -> torch.Tensor:
+    row = torch.arange(h, device=device)[:, None]
+    col = torch.arange(w, device=device)[None, :]
+    return (row >= r) & (row < h - r) & (col >= r) & (col < w - r)
+
+
+def box_sum_vertical(frame: torch.Tensor, window: int) -> torch.Tensor:
+    """Vertical ``window``-row box sum, interior-only, border zeroed
+    (CCalculation.cpp:797-823). Summed in int32, exact as the
+    reference's rolling integer DP; returned as float32 (u8 sums are
+    exact in float32, so this equals slc_tpu's float cumsum)."""
+    r = window // 2
+    h, w = frame.shape
+    fp = F.pad(frame.to(torch.int32), (0, 0, r, r))
+    s = torch.cat([torch.zeros((1, w), dtype=torch.int32,
+                               device=frame.device),
+                   torch.cumsum(fp, 0, dtype=torch.int32)], 0)
+    box = (s[window:] - s[:-window]).float()
+    return torch.where(_interior(h, w, r, frame.device), box,
+                       torch.zeros_like(box))
+
+
+def windowed_extrema(val_sum: torch.Tensor, window: int,
+                     subpixel: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-pixel offsets of the max/min of val_sum over horizontal
+    offsets [-r, r), reference scan semantics (CCalculation.cpp:
+    828-891), as slc_tpu/ops/stripe.py:68-148 computes them.
+
+    ``subpixel``: refine each extremum by a parabola through its two
+    horizontal neighbors, offset += (v[-1]-v[+1]) / (2*(v[-1]-2v0+v[+1])),
+    clamped to +-0.5.
+
+    Returns (strip_w, strip_b): float32 offsets (bright, dark), zero
+    outside the interior.
+    """
+    r = window // 2
+    h, w = val_sum.shape
+
+    def rolled(i):
+        # valSum(h, w+i); the wrap only touches masked border pixels.
+        return torch.roll(val_sum, -i, dims=1)
+
+    best_max = val_sum
+    best_max_idx = torch.zeros_like(val_sum)
+    best_min = val_sum
+    best_min_idx = torch.zeros_like(val_sum)
+    if subpixel:
+        max_vm = min_vm = rolled(-1)
+        max_vp = min_vp = rolled(1)
+    v_prev = rolled(-r - 1)
+    v = rolled(-r)
+    for i in range(-r, r):
+        v_next = rolled(i + 1)
+        upd_max = v > best_max
+        best_max = torch.where(upd_max, v, best_max)
+        best_max_idx = torch.where(upd_max, float(i), best_max_idx)
+        upd_min = v < best_min
+        best_min = torch.where(upd_min, v, best_min)
+        best_min_idx = torch.where(upd_min, float(i), best_min_idx)
+        if subpixel:
+            max_vm = torch.where(upd_max, v_prev, max_vm)
+            max_vp = torch.where(upd_max, v_next, max_vp)
+            min_vm = torch.where(upd_min, v_prev, min_vm)
+            min_vp = torch.where(upd_min, v_next, min_vp)
+        v_prev, v = v, v_next
+
+    if subpixel:
+        def refine(idx, v0, vm, vp):
+            denom = vm - 2.0 * v0 + vp
+            frac = torch.where(denom.abs() > 1e-6, 0.5 * (vm - vp) / denom,
+                               torch.zeros_like(denom))
+            return idx + frac.clamp(-0.5, 0.5)
+        best_max_idx = refine(best_max_idx, best_max, max_vm, max_vp)
+        best_min_idx = refine(best_min_idx, best_min, min_vm, min_vp)
+
+    interior = _interior(h, w, r, val_sum.device)
+    zero = torch.zeros_like(val_sum)
+    return (torch.where(interior, best_max_idx, zero),
+            torch.where(interior, best_min_idx, zero))
+
+
+def select_delta_p(strip_w_prev: torch.Tensor, strip_b_prev: torch.Tensor,
+                   strip_w_cur: torch.Tensor, strip_b_cur: torch.Tensor,
+                   robust: bool = False) -> torch.Tensor:
+    """Delta-P selection (CCalculation.cpp:595-646): take whichever
+    stripe family moved less, dX = prev - cur. ``robust``: where the two
+    families agree (|dB - dW| <= 1 px) take their mean, which cancels
+    the min-|d| rule's rectification bias (slc_tpu/ops/stripe.py:
+    161-183)."""
+    d_b = strip_b_prev - strip_b_cur
+    d_w = strip_w_prev - strip_w_cur
+    min_abs = torch.where(d_b.abs() < d_w.abs(), d_b, d_w)
+    if not robust:
+        return min_abs
+    agree = (d_b - d_w).abs() <= 1.0
+    return torch.where(agree, 0.5 * (d_b + d_w), min_abs)

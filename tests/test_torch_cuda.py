@@ -1,0 +1,95 @@
+"""The CUDA kernels against their plain PyTorch versions on the card, at
+the CPU tests' small shapes (96x160 and a ragged 90x150). Marked
+``cuda``: each test skips where there is no card. On the card:
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest
+
+(``--noconftest`` because tests/conftest.py imports jax, which a machine
+with the card need not have; chip_smoke.py runs the same comparisons at
+the reference size.)"""
+
+import numpy as np
+import pytest
+import torch
+
+from slc_tpu_torch import synth
+from slc_tpu_torch.calib import build_tables, synthetic_calibration
+from slc_tpu_torch.config import SystemConfig
+from slc_tpu_torch.kernels import dynamic_step as kstep
+from slc_tpu_torch.kernels import grayphase as kgray
+from slc_tpu_torch.kernels import stripe as kstripe
+
+torch.set_num_threads(2)
+
+pytestmark = pytest.mark.cuda
+
+SHAPES = [(96, 160), (90, 150)]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+def _setup(h, w, dev):
+    cfg = SystemConfig(cam_h=h, cam_w=w, pro_h=96, pro_w=640, gray_bits=5)
+    calib = synthetic_calibration(cam_h=h, cam_w=w, pro_h=96, pro_w=640)
+    return cfg, calib, build_tables(calib, h, w, dev)
+
+
+def _close(got, want, atol):
+    for g, e in zip(got, want):
+        torch.testing.assert_close(g, e, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("min_mod", [None, 2.0])
+def test_grayphase_kernel(dev, shape, min_mod):
+    cfg, calib, tables = _setup(*shape, dev)
+    scene = synth.render_static_scene(calib, cfg, synth.sphere_surface(),
+                                      noise_sigma=1.0)
+    g = torch.from_numpy(scene.gray_images).to(dev)
+    p = torch.from_numpy(scene.phase_images).to(dev)
+    got = kgray.grayphase_decode_cuda(g, p, tables, cfg, min_mod)
+    want = kgray.grayphase_decode_ref(g, p, tables, cfg, min_mod)
+    _close(got[:3], want[:3], 8e-3)
+    _close(got[3:], want[3:], 2e-3)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("subpixel", [False, True])
+def test_stripe_kernel(dev, shape, subpixel):
+    frame = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, shape, np.uint8)).to(dev)
+    _close(kstripe.stripe_regression_cuda(frame, 21, subpixel),
+           kstripe.stripe_regression_ref(frame, 21, subpixel), 1e-5)
+
+
+def _step_args(shape, dev):
+    cfg, calib, tables = _setup(*shape, dev)
+    frames, _, pu_gt = synth.render_dynamic_sequence(
+        calib, cfg, 2, stripe_period=12, noise_sigma=1.0)
+    f0, f1 = (torch.from_numpy(f).to(dev) for f in frames)
+    sw, sb = kstripe.stripe_regression_ref(f0, cfg.reco_window)
+    pu = torch.from_numpy(pu_gt[0].astype(np.float32)).to(dev)
+    return cfg, (f1, sw, sb, pu, tables)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("reference_semantics", [False, True])
+def test_step_kernels(dev, shape, reference_semantics):
+    cfg, args = _step_args(shape, dev)
+    on = not reference_semantics
+    kw = dict(window=cfg.reco_window, subpixel=on, scale_gradient=on,
+              robust=on, fov_min=cfg.fov_min, fov_max=cfg.fov_max)
+    got = kstep.dynamic_step_open_cuda(*args, **kw)
+    want = kstep.dynamic_step_open_ref(*args, **kw)
+    for i, bar in enumerate((2e-4, 1e-5, 1e-5, 2e-3, 2e-4, 2e-4)):
+        _close(got[i:i + 1], want[i:i + 1], bar)
+    lk = dict(kw, period=12.0, win_u=21, win_v=9)
+    got = kstep.dynamic_step_lock_cuda(*args, **lk)
+    want = kstep.dynamic_step_lock_ref(*args, **lk)
+    for i, bar in enumerate((2e-3, 1e-5, 1e-5, 4e-3, 4e-3, 4e-3)):
+        _close(got[i:i + 1], want[i:i + 1], bar)
