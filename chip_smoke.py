@@ -1,24 +1,36 @@
 #!/usr/bin/env python3
 """Smoke test of slc_tpu_torch on one CUDA card: build, kernel parity,
-kernel timing, and the replay main path end to end.
+kernel timing, and the replay paths end to end.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout. In order it:
 
 1. requires CUDA and prints the card (``nvidia-smi``), torch and CUDA;
-2. builds the four CUDA kernels from ``slc_tpu_torch/kernels/csrc``;
+2. builds the eight CUDA kernels from ``slc_tpu_torch/kernels/csrc`` into
+   one library (one nvcc per source, all started together);
 3. holds each kernel against its plain PyTorch version, both on the card,
    at the reference shape 1024x1280 and a ragged 1000x1270, on rendered
-   inputs (and a random frame for the stripe kernel), at the bars of the
-   CPU parity tests;
+   inputs (a random frame for the stripe kernel, random O(1) levels for
+   the multigrid kernels), at the bars of the CPU parity tests;
 4. times each kernel and its plain version at 1024x1280 with CUDA events
    (median of 25 calls after warm-up);
-5. renders a 30-frame moving-plane dataset at the reference config and
-   runs ``python -m slc_tpu_torch run`` on it through ``main()``, with the
-   phase lock on and off: every kernel's launch count must equal the calls
-   the runner makes, and the locked depth error at the last frame must be
-   below 0.05 scene units and below half the free-running error.
+5. runs ``python -m slc_tpu_torch run`` through ``main()``, each run with
+   the launch counts set to 0 just before it and read just after, and
+   each count required to equal the calls the runner makes:
+   - gray mode on a 30-frame moving-plane dataset, phase lock on and off:
+     the locked depth error at the last frame must be below 0.05 scene
+     units and below half the free-running error;
+   - on a 10-frame dataset with the heterodyne fringe stack,
+     ``--mode heterodyne`` (lock on): the median depth error of frame 0
+     and of the last frame must be below 0.05;
+   - on the same dataset, ``--mode spatial``: frame 0 must equal a direct
+     ``decode_spatial_frame`` call, be decoded (P != 0) on more than 90%
+     of the pixels the projector lights, and have P congruent to the true
+     map up to one global period offset on 99% of the decoded interior.
+     The multigrid kernels must launch 7 times per preconditioner call,
+     ``cg_iters + 1`` calls per decode, ``cg_iters`` taken from a direct
+     ``unwrap_spatial(..., return_info=True)`` on the same input.
 
 Any failure ends the script with a non-zero exit. The last line of its
 output is one JSON object: ``{"ok": true, "device": {...}}``.
@@ -41,23 +53,33 @@ import torch
 from slc_tpu_torch import synth
 from slc_tpu_torch.__main__ import main as slc_main
 from slc_tpu_torch.calib import build_tables, synthetic_calibration
-from slc_tpu_torch.config import REFERENCE_CONFIG
+from slc_tpu_torch.config import REFERENCE_CONFIG, HeterodyneConfig
 from slc_tpu_torch.io.dataset import write_replay_dataset
 from slc_tpu_torch.io.opencv_yaml import save_calibration
 from slc_tpu_torch.kernels import _build
+from slc_tpu_torch.kernels import bilateral as kbil
 from slc_tpu_torch.kernels import dynamic_step as kstep
 from slc_tpu_torch.kernels import grayphase as kgray
+from slc_tpu_torch.kernels import heterodyne as khet
+from slc_tpu_torch.kernels import mgsmooth as kmg
 from slc_tpu_torch.kernels import stripe as kstripe
+from slc_tpu_torch.ops import unwrap_spatial as U
 from slc_tpu_torch.ops.demod import suggest_lock_window
+from slc_tpu_torch.ops.phase import decode_phase, modulation
+from slc_tpu_torch.pipeline import decode_spatial_frame
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, ".chip_smoke_work")
 SHAPES = ((1024, 1280), (1000, 1270))
 N_FRAMES = 30
+N_FRINGE_FRAMES = 10
 LOCK_T = 12.0
+HET = HeterodyneConfig()
 
 # Bars (tests/test_torch_*.py): decode P 2e-3, x/y/z 8e-3; strips 1e-5;
-# locked step P 2e-3, z/x 4e-3; open-loop P 2e-4, z 2e-3, x 2e-4.
+# locked step P 2e-3, z/x 4e-3; open-loop P 2e-4, z 2e-3, x 2e-4;
+# heterodyne P 2e-3, x/y/z 4e-3 off the pinned flips; bilateral 1e-4;
+# multigrid levels 2e-6 on O(1) data.
 BARS = {
     "grayphase": {"proj_u": 2e-3, "x": 8e-3, "y": 8e-3, "z": 8e-3},
     "stripe": {"strip_w": 1e-5, "strip_b": 1e-5},
@@ -66,6 +88,10 @@ BARS = {
                           "y": 4e-3},
     "dynamic_step": {"proj_u": 2e-4, "strip_w": 1e-5, "strip_b": 1e-5,
                      "z": 2e-3, "x": 2e-4, "y": 2e-4},
+    "heterodyne": {"proj_u": 2e-3, "x": 4e-3, "y": 4e-3, "z": 4e-3},
+    "bilateral": {"z": 1e-4},
+    "mg_down": {"e": 2e-6, "res": 2e-6},
+    "mg_up": {"e": 2e-6},
 }
 STEP_OUT = ("proj_u", "strip_w", "strip_b", "z", "x", "y")
 #: The locked step's per-pixel arccos refinement takes, of the two
@@ -73,8 +99,12 @@ STEP_OUT = ("proj_u", "strip_w", "strip_b", "z", "x", "y")
 #: (slc_tpu/ops/demod.py:194-201). Where both are equally near, float
 #: rounding picks either, and P may move by up to T/2 at that pixel.
 #: Such isolated flips are pinned by count per comparison at 1.3 MP, as
-#: slc_tpu pins heterodyne beat-order flips (tests/conftest.py:41-64).
+#: slc_tpu pins heterodyne beat-order flips (tests/conftest.py:40-61).
 LOCK_FLIPS = 32
+#: Heterodyne beat-order flips: at most this many per comparison, each
+#: exactly one fine fringe order, none in a 2x2 block
+#: (tests/conftest.py:40-61).
+HET_FLIPS = 8
 
 
 def require(cond, msg="check failed") -> None:
@@ -94,13 +124,14 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def compare(name, got, want, keys, errs, flips=0):
+def compare(name, got, want, keys, errs, flips=0, flip_order=None):
     """Assert each output within its bar; record the max abs error.
 
     ``flips`` > 0 pins that many isolated branch flips of proj_u (see
-    LOCK_FLIPS): each may move P by at most T/2, no 2x2 block may flip
-    together, and the maps derived from P (z, x, y) are compared on the
-    other pixels only."""
+    LOCK_FLIPS and HET_FLIPS, proj_u must come first): each may move P by
+    at most T/2, or by exactly ``flip_order`` when given; no 2x2 block may
+    flip together, and the maps derived from P (z, x, y) are compared on
+    the other pixels only."""
     agree = None
     for k, g, e in zip(keys, got, want):
         d = (g - e).abs()
@@ -109,35 +140,53 @@ def compare(name, got, want, keys, errs, flips=0):
         finite = bool(torch.isfinite(g).all() and torch.isfinite(e).all())
         err = float(d.max())
         bar = BARS[name][k]
-        over = d > bar
-        n_over = int(over.sum())
+        n_over = int((d > bar).sum())
         log(f"  {name}.{k}: max|diff| {err:.3e} (bar {bar:g}, "
             f"{n_over} px over)")
         require(finite, f"{name}.{k}: non-finite values")
-        if flips and k == "proj_u" and n_over:
-            idx = over.nonzero().tolist()
+        # Heterodyne flips are told apart at 1e-2, as conftest does.
+        flip = d > (1e-2 if flip_order else bar)
+        n_flips = int(flip.sum()) if flips and k == "proj_u" else 0
+        if n_flips:
+            idx = flip.nonzero().tolist()
             log(f"  {name}.proj_u flips at (row, col, kernel, plain): "
                 + ", ".join(f"({r}, {c}, {float(g[r, c]):.4f}, "
                             f"{float(e[r, c]):.4f})" for r, c in idx[:16]))
-            block = over[:-1, :-1] & over[1:, :-1] & over[:-1, 1:] \
-                & over[1:, 1:]
-            require(n_over <= flips,
-                    f"{name}.proj_u: {n_over} flips (pinned at {flips})")
-            require(err <= LOCK_T / 2 + bar,
-                    f"{name}.proj_u: a flip moved P by {err} > T/2")
+            block = flip[:-1, :-1] & flip[1:, :-1] & flip[:-1, 1:] \
+                & flip[1:, 1:]
+            require(n_flips <= flips,
+                    f"{name}.proj_u: {n_flips} flips (pinned at {flips})")
+            if flip_order:
+                orders = d[flip] / flip_order
+                require(bool(((orders - 1.0).abs() <= 0.02).all()),
+                        f"{name}.proj_u: a flip is not one fine order")
+            else:
+                require(err <= LOCK_T / 2 + bar,
+                        f"{name}.proj_u: a flip moved P by {err} > T/2")
             require(not bool(block.any()),
                     f"{name}.proj_u: a 2x2 block flipped together")
-            agree = ~over
-            errs[f"{name}_flips"] = errs.get(f"{name}_flips", 0) + n_over
-            err = float(torch.where(agree, d, torch.zeros_like(d)).max())
-        else:
-            require(n_over == 0,
-                    f"{name}.{k}: {n_over} px over the bar {bar}")
+            agree = ~flip
+            errs[f"{name}_flips"] = errs.get(f"{name}_flips", 0) + n_flips
+            d = torch.where(agree, d, torch.zeros_like(d))
+            err = float(d.max())
+            n_over = int((d > bar).sum())
+        require(n_over == 0, f"{name}.{k}: {n_over} px over the bar {bar}")
         errs[name] = max(errs.get(name, 0.0), err)
 
 
 def cfg_for(h, w):
     return dataclasses.replace(REFERENCE_CONFIG, cam_h=h, cam_w=w)
+
+
+def mg_level(dev, h, w, seed=0):
+    """A random O(1) multigrid level: quality in [0.1, 1]."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.uniform(0.1, 1.0, (h, w)).astype(np.float32))
+    wy, wx = U.edge_weights(q.to(dev))
+    dinv = 1.0 / U._diag(wy, wx)
+    r, e = (torch.from_numpy(rng.normal(0, 1, (h, w)).astype(np.float32))
+            .to(dev) for _ in range(2))
+    return r, e, wy, wx, dinv
 
 
 def parity(dev, errs, inputs):
@@ -188,9 +237,35 @@ def parity(dev, errs, inputs):
                         kstep.dynamic_step_lock_cuda(*args, **lk),
                         kstep.dynamic_step_lock_ref(*args, **lk), STEP_OUT,
                         errs, flips=LOCK_FLIPS)
+
+        fringes, _, _ = synth.render_fringe_stack(
+            calib, cfg, synth.sphere_surface(), HET.periods(cfg.pro_w),
+            HET.phase_steps, noise_sigma=1.0)
+        fr = torch.from_numpy(fringes).to(dev)
+        fine = HET.periods(cfg.pro_w)[0]
+        for min_mod in (None, 2.0):
+            got = khet.heterodyne_decode_cuda(fr, tables, cfg, HET, min_mod)
+            want = khet.heterodyne_decode_ref(fr, tables, cfg, HET, min_mod)
+            compare("heterodyne", got[3:] + got[:3], want[3:] + want[:3],
+                    ("proj_u", "x", "y", "z"), errs, flips=HET_FLIPS,
+                    flip_order=fine)
+
+        # A rendered depth map (the heterodyne decode's) with 5% holes.
+        depth = want[2].clone()
+        holes = np.random.default_rng(1).uniform(size=(h, w)) < 0.05
+        depth[torch.from_numpy(holes).to(dev)] = 0.0
+        compare("bilateral", (kbil.bilateral_filter_cuda(depth),),
+                (kbil.bilateral_filter_ref(depth),), ("z",), errs)
+
+        r, e, wy, wx, dinv = mg_level(dev, h, w)
+        compare("mg_down", kmg.mg_down_cuda(r, wy, wx, dinv),
+                kmg.mg_down_ref(r, wy, wx, dinv), ("e", "res"), errs)
+        compare("mg_up", (kmg.mg_up_cuda(e, r, wy, wx, dinv),),
+                (kmg.mg_up_ref(e, r, wy, wx, dinv),), ("e",), errs)
         if (h, w) == SHAPES[0]:
             inputs.update(g=g, p=p, tables=tables, cfg=cfg, frame=f1,
-                          step_args=args, win=win)
+                          step_args=args, win=win, fringes=fr, depth=depth,
+                          level=(r, e, wy, wx, dinv))
 
 
 def time_call(fn, runs=25, warmup=3):
@@ -213,6 +288,8 @@ def timing(inputs):
     """Phase 4: kernel vs plain version at 1024x1280."""
     g, p, tables, cfg = (inputs[k] for k in ("g", "p", "tables", "cfg"))
     args = inputs["step_args"]
+    fr, depth = inputs["fringes"], inputs["depth"]
+    r, e, wy, wx, dinv = inputs["level"]
     kw = dict(window=cfg.reco_window, fov_min=cfg.fov_min,
               fov_max=cfg.fov_max)
     lk = dict(kw, period=LOCK_T, win_u=inputs["win"], win_v=9)
@@ -229,6 +306,15 @@ def timing(inputs):
         "dynamic_step": (
             lambda: kstep.dynamic_step_open_cuda(*args, **kw),
             lambda: kstep.dynamic_step_open_ref(*args, **kw)),
+        "heterodyne": (
+            lambda: khet.heterodyne_decode_cuda(fr, tables, cfg, HET),
+            lambda: khet.heterodyne_decode_ref(fr, tables, cfg, HET)),
+        "bilateral": (lambda: kbil.bilateral_filter_cuda(depth),
+                      lambda: kbil.bilateral_filter_ref(depth)),
+        "mg_down": (lambda: kmg.mg_down_cuda(r, wy, wx, dinv),
+                    lambda: kmg.mg_down_ref(r, wy, wx, dinv)),
+        "mg_up": (lambda: kmg.mg_up_cuda(e, r, wy, wx, dinv),
+                  lambda: kmg.mg_up_ref(e, r, wy, wx, dinv)),
     }
     out = {}
     for name, (kern, plain) in pairs.items():
@@ -244,9 +330,50 @@ def timing(inputs):
     return out
 
 
-def end_to_end():
-    """Phase 5: the replay main path through the CLI, lock on and off.
-    Returns the launch counts of the two runs together."""
+#: The kernel wrappers, each with its ``launches`` count.
+WRAPPERS = {"grayphase": kgray.grayphase_decode_cuda,
+            "stripe": kstripe.stripe_regression_cuda,
+            "dynamic_step_lock": kstep.dynamic_step_lock_cuda,
+            "dynamic_step": kstep.dynamic_step_open_cuda,
+            "heterodyne": khet.heterodyne_decode_cuda,
+            "bilateral": kbil.bilateral_filter_cuda,
+            "mg_down": kmg.mg_down_cuda,
+            "mg_up": kmg.mg_up_cuda}
+
+
+def counted_run(argv, expected_fn):
+    """One ``main(["run", ...])`` with every launch count set to 0 just
+    before it and read just after; the counts must equal
+    ``expected_fn()`` (evaluated after the run) exactly."""
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+    rc = slc_main(["run", *argv, "--out-format", "npz", "--device", "cuda"])
+    got = {k: w.launches for k, w in WRAPPERS.items()}
+    require(rc == 0, f"run {argv} exited {rc}")
+    want = {k: 0 for k in WRAPPERS}
+    want.update(expected_fn())
+    log(f"e2e launches {got}")
+    require(got == want, f"launch counts {got} != expected {want}")
+    return got
+
+
+def frame_records(out):
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return [x for x in recs if "frame" in x]
+
+
+def median_err(z, z_gt, margin):
+    zi, gi = z[margin:-margin, margin:-margin], z_gt[margin:-margin,
+                                                     margin:-margin]
+    v = zi > 0
+    require(np.isfinite(z).all() and v.mean() > 0.9,
+            f"depth not finite or mostly invalid ({v.mean():.4f} valid)")
+    return float(np.median(np.abs(zi[v] - gi[v])))
+
+
+def gray_runs(launches):
+    """Phase 5a: the gray replay path through the CLI, lock on and off."""
     cfg = REFERENCE_CONFIG
     calib = synthetic_calibration(cam_h=cfg.cam_h, cam_w=cfg.cam_w,
                                   pro_h=cfg.pro_h, pro_w=cfg.pro_w)
@@ -264,67 +391,158 @@ def end_to_end():
                                         "phase_steps": cfg.phase_steps,
                                         "stripe_period": int(LOCK_T)})
     save_calibration(os.path.join(ds, "parameters.yml"), calib)
-    log(f"e2e: rendered and wrote {N_FRAMES} frames at "
+    log(f"e2e gray: rendered and wrote {N_FRAMES} frames at "
         f"{cfg.cam_h}x{cfg.cam_w} in {time.perf_counter() - t0:.1f} s")
 
     # Per run the runner decodes frame 0 twice (a warm-up, then the
     # timed decode), tracks frame 0 once (init_tracker) and steps once
     # for its warm-up plus once per remaining frame.
-    per_run = {"grayphase": 2, "stripe": 1, "step": 1 + (N_FRAMES - 1)}
-    expected = {"grayphase": 2 * per_run["grayphase"],
-                "stripe": 2 * per_run["stripe"],
-                "dynamic_step_lock": per_run["step"],
-                "dynamic_step": per_run["step"]}
-    log(f"e2e: expected launches {expected}")
-    reset_counts()
     errs = {}
-    for name, extra in (("locked", []), ("free", ["--phase-lock", "off"])):
+    for name, extra, step in (
+            ("locked", [], "dynamic_step_lock"),
+            ("free", ["--phase-lock", "off"], "dynamic_step")):
         out = os.path.join(WORK, name)
-        rc = slc_main(["run", ds, "--calib",
-                       os.path.join(ds, "parameters.yml"), "--out", out,
-                       "--out-format", "npz", "--device", "cuda", *extra])
-        require(rc == 0, f"run {name} exited {rc}")
+        got = counted_run(
+            [ds, "--calib", os.path.join(ds, "parameters.yml"), "--out", out,
+             *extra],
+            lambda: {"grayphase": 2, "stripe": 1, step: N_FRAMES})
+        for k, v in got.items():
+            launches[k] += v
         z = np.load(os.path.join(out, f"cFrame{N_FRAMES - 1}.npz"))["z"]
-        r = cfg.reco_window // 2 + 2
-        zi, gi = z[r:-r, r:-r], zs[N_FRAMES - 1][r:-r, r:-r]
-        v = zi > 0
-        require(np.isfinite(z).all() and v.mean() > 0.9,
-                f"{name}: depth not finite or mostly invalid")
-        errs[name] = float(np.median(np.abs(zi[v] - gi[v])))
-        with open(os.path.join(out, "metrics.jsonl")) as f:
-            recs = [json.loads(line) for line in f]
-        frames_r = [x for x in recs if "frame" in x]
-        require(len(frames_r) == N_FRAMES, f"{name}: {len(frames_r)} records")
-        steps = [x["t_dynamic_step_ms"] for x in frames_r[1:]]
-        fps = [x["fps"] for x in frames_r[2:]]
-        log(f"e2e {name}: median|z err| at frame {N_FRAMES - 1} "
-            f"{errs[name]:.5f}, valid_frac {frames_r[-1]['valid_frac']:.4f}, "
+        errs[name] = median_err(z, zs[N_FRAMES - 1], cfg.reco_window // 2 + 2)
+        recs = frame_records(out)
+        require(len(recs) == N_FRAMES, f"{name}: {len(recs)} records")
+        steps = [x["t_dynamic_step_ms"] for x in recs[1:]]
+        fps = [x["fps"] for x in recs[2:]]
+        log(f"e2e gray {name}: median|z err| at frame {N_FRAMES - 1} "
+            f"{errs[name]:.5f}, valid_frac {recs[-1]['valid_frac']:.4f}, "
             f"step median {statistics.median(steps):.3f} ms, "
             f"fps median {statistics.median(fps):.1f}, "
-            f"decode {frames_r[0]['t_first_frame_ms']:.3f} ms")
-        log(f"e2e {name}: launches so far {counts()}")
-    got = counts()
-    require(got == expected, f"launch counts {got} != expected {expected}")
+            f"decode {recs[0]['t_first_frame_ms']:.3f} ms")
     require(errs["locked"] < 0.05, f"locked error too large: {errs}")
     require(errs["locked"] < 0.5 * errs["free"],
             f"locked error not below half the free-running one: {errs}")
-    return got
 
 
-#: The kernel wrappers, each with its ``launches`` count.
-WRAPPERS = {"grayphase": kgray.grayphase_decode_cuda,
-            "stripe": kstripe.stripe_regression_cuda,
-            "dynamic_step_lock": kstep.dynamic_step_lock_cuda,
-            "dynamic_step": kstep.dynamic_step_open_cuda}
+def mg_launches_per_cycle(h, w):
+    """Launches of each multigrid kernel per preconditioner call: the
+    levels of U.build_mg_levels at least MG_KERNEL_MIN on both sides,
+    each once per visit; a K-cycle level visits the next one twice."""
+    shapes = [(h, w)]
+    while min(shapes[-1]) > U.MG_COARSEST:
+        lh, lw = shapes[-1]
+        shapes.append((-(-lh // 2), -(-lw // 2)))
+    n, visits, kdepth = 0, 1, U.MG_KDEPTH
+    for i, (lh, lw) in enumerate(shapes[:-1]):
+        if U.MG_NU == 2 and min(lh, lw) >= U.MG_KERNEL_MIN:
+            n += visits
+        if kdepth > 0 and len(shapes) - i > 2:
+            visits, kdepth = 2 * visits, kdepth - 1
+    return n
 
 
-def counts():
-    return {k: w.launches for k, w in WRAPPERS.items()}
+def fringe_runs(dev, launches):
+    """Phase 5b: the heterodyne and spatial frame-0 decodes through the
+    CLI, on a synth-style dataset with the fringe stack."""
+    cfg = REFERENCE_CONFIG
+    calib = synthetic_calibration(cam_h=cfg.cam_h, cam_w=cfg.cam_w,
+                                  pro_h=cfg.pro_h, pro_w=cfg.pro_w)
+    t0 = time.perf_counter()
+    plane = synth.plane_surface(50.0)
+    dz = 0.08
+    scene = synth.render_static_scene(calib, cfg, plane, noise_sigma=1.0)
+    fringes, _, _ = synth.render_fringe_stack(
+        calib, cfg, plane, HET.periods(cfg.pro_w), HET.phase_steps,
+        noise_sigma=1.0)
+    frames, zs, _ = synth.render_dynamic_sequence(
+        calib, cfg, N_FRINGE_FRAMES, z0=50.0, dz_per_frame=dz,
+        stripe_period=int(LOCK_T), noise_sigma=1.0,
+        surface_for_frame=lambda f: synth.offset_surface(plane, dz * f))
+    ds = os.path.join(WORK, "fringe_ds")
+    write_replay_dataset(ds, scene.gray_images, scene.phase_images, frames,
+                         fringes,
+                         config_fields={"pro_h": cfg.pro_h,
+                                        "pro_w": cfg.pro_w,
+                                        "gray_bits": cfg.gray_bits,
+                                        "phase_steps": cfg.phase_steps,
+                                        "scene": "plane",
+                                        "stripe_period": int(LOCK_T)})
+    calib_path = os.path.join(ds, "parameters.yml")
+    save_calibration(calib_path, calib)
+    log(f"e2e fringes: rendered and wrote {N_FRINGE_FRAMES} frames and "
+        f"{HET.num_images} fringe images in {time.perf_counter() - t0:.1f} s")
+    margin = cfg.reco_window // 2 + 2
 
+    out = os.path.join(WORK, "heterodyne")
+    got = counted_run([ds, "--calib", calib_path, "--out", out, "--mode",
+                       "heterodyne"],
+                      lambda: {"heterodyne": 2, "stripe": 1,
+                               "dynamic_step_lock": N_FRINGE_FRAMES})
+    for k, v in got.items():
+        launches[k] += v
+    recs = frame_records(out)
+    last = N_FRINGE_FRAMES - 1
+    err0 = median_err(np.load(os.path.join(out, "iFrame.npz"))["z"],
+                      scene.z_gt, margin)
+    err_last = median_err(np.load(os.path.join(out, f"cFrame{last}.npz"))["z"],
+                          zs[last], margin)
+    log(f"e2e heterodyne: median|z err| frame 0 {err0:.5f}, frame {last} "
+        f"{err_last:.5f}, t_first_frame_ms {recs[0]['t_first_frame_ms']}")
+    require(err0 < 0.05 and err_last < 0.05,
+            f"heterodyne errors too large: {err0}, {err_last}")
 
-def reset_counts():
-    for w in WRAPPERS.values():
-        w.launches = 0
+    out = os.path.join(WORK, "spatial")
+    per_cycle = mg_launches_per_cycle(cfg.cam_h, cfg.cam_w)
+    period = float(cfg.phase_period)
+    p0 = torch.from_numpy(scene.phase_images).to(dev)
+    info = {}
+
+    def spatial_expected():
+        # The same input, decoded directly after the run: its CG
+        # iteration count sets the multigrid launches of each decode.
+        _, inf = U.unwrap_spatial(decode_phase(p0, period), period,
+                                  quality=modulation(p0), return_info=True)
+        info.update(inf)
+        mg = 2 * per_cycle * (inf["cg_iters"] + 1)
+        return {"bilateral": 2, "mg_down": mg, "mg_up": mg, "stripe": 1,
+                "dynamic_step_lock": N_FRINGE_FRAMES}
+
+    got = counted_run([ds, "--calib", calib_path, "--out", out, "--mode",
+                       "spatial"], spatial_expected)
+    for k, v in got.items():
+        launches[k] += v
+    recs = frame_records(out)
+    log(f"e2e spatial: cg_iters {info['cg_iters']} at "
+        f"{cfg.cam_h}x{cfg.cam_w}, rel_residual "
+        f"{float(info['rel_residual']):.3e}, {per_cycle} launches of each "
+        f"multigrid kernel per preconditioner call, so "
+        f"{per_cycle * (info['cg_iters'] + 1)} per decode; "
+        f"t_first_frame_ms {recs[0]['t_first_frame_ms']}")
+    tables = build_tables(calib, cfg.cam_h, cfg.cam_w, dev)
+    direct = decode_spatial_frame(p0, tables, cfg, period)
+    cloud = np.load(os.path.join(out, "iFrame.npz"))
+    for k in ("z", "x", "y"):
+        diff = np.abs(cloud[k] - getattr(direct, k).cpu().numpy()).max()
+        log(f"  spatial iFrame.{k} vs direct decode: max|diff| {diff:.3e}")
+        require(diff <= 1e-4, f"spatial iFrame.{k} differs by {diff}")
+    pu = direct.proj_u.cpu().numpy()
+    lit = (scene.proj_u >= 0) & (scene.proj_u < cfg.pro_w)
+    decoded = pu != 0
+    frac = float(decoded[lit].mean())
+    inner = np.zeros_like(decoded)
+    inner[margin:-margin, margin:-margin] = True
+    sel = decoded & inner
+    orders, n = np.unique(np.round((pu - scene.proj_u) / period)[sel],
+                          return_counts=True)
+    k0 = float(orders[np.argmax(n)])
+    cong = float((np.abs(pu[sel] - scene.proj_u[sel] - k0 * period)
+                  < 1.0).mean())
+    log(f"e2e spatial: decoded {frac:.5f} of the lit pixels; P congruent "
+        f"to the truth at a global offset of {k0:+.0f} periods on "
+        f"{cong:.5f} of the decoded interior; depth valid on "
+        f"{float((cloud['z'] > 0).mean()):.5f} of frame 0")
+    require(frac > 0.9, f"spatial decode covers only {frac} of the lit px")
+    require(cong >= 0.99, f"spatial P congruent on only {cong}")
 
 
 def main() -> int:
@@ -342,26 +560,31 @@ def main() -> int:
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
+    launches = {k: 0 for k in WRAPPERS}
     try:
         errs, inputs = {}, {}
         parity(dev, errs, inputs)
         times = timing(inputs)
         del inputs
-        launches = end_to_end()
+        gray_runs(launches)
+        fringe_runs(dev, launches)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
     meta = {
-        "grayphase": ("slc_tpu_torch/kernels/csrc/grayphase.cu",
-                      "slc_tpu/pallas/grayphase.py:152"),
-        "stripe": ("slc_tpu_torch/kernels/csrc/stripe.cu",
-                   "slc_tpu/pallas/stripe.py:102"),
-        "dynamic_step_lock": ("slc_tpu_torch/kernels/csrc/dynamic_step.cu",
+        "grayphase": ("grayphase.cu", "slc_tpu/pallas/grayphase.py:152"),
+        "stripe": ("stripe.cu", "slc_tpu/pallas/stripe.py:102"),
+        "dynamic_step_lock": ("dynamic_step.cu",
                               "slc_tpu/pallas/dynamic_lock.py:297"),
-        "dynamic_step": ("slc_tpu_torch/kernels/csrc/dynamic_step.cu",
+        "dynamic_step": ("dynamic_step.cu",
                          "slc_tpu/pallas/dynamic_step.py:166"),
+        "heterodyne": ("heterodyne.cu", "slc_tpu/pallas/heterodyne.py:201"),
+        "bilateral": ("bilateral.cu", "slc_tpu/pallas/bilateral.py:61"),
+        "mg_down": ("mgsmooth.cu", "slc_tpu/pallas/mgsmooth.py:149"),
+        "mg_up": ("mgsmooth.cu", "slc_tpu/pallas/mgsmooth.py:178"),
     }
-    kernels = [{"name": name, "route": "cuda", "source": src,
+    kernels = [{"name": name, "route": "cuda",
+                "source": f"slc_tpu_torch/kernels/csrc/{src}",
                 "replaces": rep, "launches": launches[name],
                 "max_abs_err": errs[name], "ms": times[name][0],
                 "plain_ms": times[name][1]}

@@ -62,17 +62,13 @@ def _build_cfg(args, manifest=None):
 
 def _not_ported(ap: argparse.ArgumentParser, args) -> None:
     """Reject the flags of features slc_tpu has and this port has not."""
+    bad = []
     if args.cmd == "run":
-        bad = []
-        if args.mode != "gray":
-            bad.append(f"--mode {args.mode}")
         if args.chunk != 1:
             bad.append(f"--chunk {args.chunk}")
         for flag in ("fast_subpixel", "preview", "save_depth"):
             if getattr(args, flag):
                 bad.append("--" + flag.replace("_", "-"))
-    else:
-        bad = ["--fringes"] if args.fringes else []
     if bad:
         ap.error(f"{', '.join(bad)}: not ported to slc_tpu_torch yet "
                  f"(use python -m slc_tpu)")
@@ -81,6 +77,7 @@ def _not_ported(ap: argparse.ArgumentParser, args) -> None:
 def _cmd_synth(args, cfg) -> int:
     from slc_tpu_torch import synth
     from slc_tpu_torch.calib import synthetic_calibration
+    from slc_tpu_torch.config import HeterodyneConfig
     from slc_tpu_torch.io.dataset import (write_anchor_group,
                                           write_replay_dataset)
     from slc_tpu_torch.io.opencv_yaml import save_calibration
@@ -90,6 +87,14 @@ def _cmd_synth(args, cfg) -> int:
                else synth.plane_surface(50.0))
     scene = synth.render_static_scene(calib, cfg, surface,
                                       noise_sigma=args.noise)
+    fringes = None
+    if args.fringes:
+        # The multi-frequency stack of --mode heterodyne
+        # (slc_tpu/__main__.py:338-344).
+        het = HeterodyneConfig(phase_steps=cfg.phase_steps)
+        fringes, _, _ = synth.render_fringe_stack(
+            calib, cfg, surface, het.periods(cfg.pro_w), het.phase_steps,
+            noise_sigma=args.noise)
     frames = None
     dz = 0.08
     stripe_period = 12
@@ -102,7 +107,7 @@ def _cmd_synth(args, cfg) -> int:
             surface_for_frame=(
                 lambda f: synth.offset_surface(surface, dz * f)))
     write_replay_dataset(args.out, scene.gray_images, scene.phase_images,
-                         frames, None,
+                         frames, fringes,
                          config_fields={
                              "pro_h": cfg.pro_h, "pro_w": cfg.pro_w,
                              "gray_bits": cfg.gray_bits,
@@ -171,8 +176,7 @@ def main(argv=None) -> int:
                            "(exact CCalculation.cpp:595-660 behavior)")
     runp.add_argument("--mode", choices=["gray", "heterodyne", "spatial"],
                       default="gray",
-                      help="frame-0 absolute decode method (only 'gray' "
-                           "is ported)")
+                      help="frame-0 absolute decode method")
     runp.add_argument("--save-depth", action="store_true",
                       help="not ported yet")
     runp.add_argument("--preview", action="store_true",
@@ -202,7 +206,9 @@ def main(argv=None) -> int:
     sy.add_argument("--frames", type=int, default=8)
     sy.add_argument("--noise", type=float, default=1.0)
     sy.add_argument("--scene", choices=["plane", "sphere"], default="sphere")
-    sy.add_argument("--fringes", action="store_true", help="not ported yet")
+    sy.add_argument("--fringes", action="store_true",
+                    help="also render the multi-frequency fringe stack "
+                         "(vFringeCam*) for --mode heterodyne")
     sy.add_argument("--anchor-every", type=int, default=0,
                     help="write absolute re-anchoring pattern groups "
                          "(aFrame{f}/) every K dynamic frames")

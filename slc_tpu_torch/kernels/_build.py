@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` file (plus the shared ``csrc/*.cuh`` headers) is
-compiled by ``nvcc`` into ONE shared library with a plain C interface,
-loaded through ``ctypes``. The build runs at first use, never at import,
+compiled by its own ``nvcc``, all at once, and the objects are linked
+into ONE shared library with a plain C interface, loaded through
+``ctypes``. The build runs at first use, never at import,
 so the package imports on a machine without ``nvcc``. The library lands
 in ``kernels/build/`` under a name keyed by a hash of the sources and
 flags, so editing a source rebuilds it. A failed build raises with
@@ -28,7 +29,7 @@ _BUILD = os.path.join(_DIR, "build")
 
 #: No --use_fast_math: the kernels rely on IEEE division and sqrt.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
@@ -54,6 +55,17 @@ _SIGNATURES = {
     "slc_dynamic_step_lock": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                               _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
                               _f, _i, _i, _f, _i, _f, _i, _vp, _vp],
+    # images, x, y, z, pu, h, w, nfreq, n, periods, scales, spine (host
+    # float arrays), coarse, extent, ck, sk (host), two_over_n, use_mod,
+    # min_mod, tri, stream
+    "slc_heterodyne": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp, _vp,
+                       _vp, _f, _f, _vp, _vp, _f, _i, _f, _vp, _vp],
+    # img, out, h, w, inv2sc, inv2ss, stream
+    "slc_bilateral": [_vp, _vp, _i, _i, _f, _f, _vp],
+    # r, wy, wx, dinv, e, res, h, w, omega, stream
+    "slc_mg_down": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _f, _vp],
+    # e, r, wy, wx, dinv, out, h, w, omega, stream
+    "slc_mg_up": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _f, _vp],
 }
 
 _lock = threading.Lock()
@@ -90,21 +102,45 @@ def _library_path() -> str:
     return os.path.join(_BUILD, f"libslc_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _nvcc_error(cmd, proc_rc, stderr) -> RuntimeError:
+    return RuntimeError(f"nvcc failed (exit {proc_rc}): {' '.join(cmd)}\n"
+                        f"{stderr}")
+
+
 def build() -> str:
     """Compile the library if no build of the current sources exists;
-    return its path. Raises RuntimeError with nvcc's stderr on
-    failure."""
+    return its path. One nvcc per source, all started together, then one
+    link. Raises RuntimeError with nvcc's stderr on failure."""
     path = _library_path()
     if os.path.exists(path):
         return path
     os.makedirs(_BUILD, exist_ok=True)
+    nvcc = find_nvcc()
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}")
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources()]
+    procs = []
+    try:
+        for src, obj in zip(sources(), objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        for cmd, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise _nvcc_error(cmd, proc.returncode, err)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        link = subprocess.run(cmd, capture_output=True, text=True)
+        if link.returncode != 0:
+            raise _nvcc_error(cmd, link.returncode, link.stderr)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, path)             # atomic: concurrent builders agree
     return path
 

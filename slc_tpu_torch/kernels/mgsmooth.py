@@ -1,0 +1,120 @@
+"""One multigrid level of the spatial unwrap's preconditioner: the
+descent (``mg_down``) and the ascent (``mg_up``) of ops.unwrap_spatial's
+``vcycle`` with nu = 2.
+
+Source note. Replaces slc_tpu/pallas/mgsmooth.py:149 ``mg_down_pallas``
+and :178 ``mg_up_pallas``. The CUDA kernels (csrc/mgsmooth.cu) give a
+block a 32x16 output tile and stage r, omega*dinv and the edge weights
+of the tile plus a 2-px halo in shared memory, in both directions (the
+TPU kernels held whole rows and needed a row halo only): sweep 1 runs on
+tile+2, sweep 2 on tile+1, the residual or the last post-smooth on the
+tile. Each moves 24 B/px of device memory (mg_down: r, wy, wx, dinv in,
+e and res out; mg_up: e, r, wy, wx, dinv in, e out) and is bound by it;
+the plain versions stream ~25 full-image maps per level. The kernels
+round every operation on its own, in the plain path's association, so
+they match it to about an ulp.
+
+``mg_down`` and ``mg_up`` dispatch on the device of ``r``: CPU tensors
+take the plain PyTorch version, CUDA tensors the kernel (or it raises).
+The caller, ``vcycle``, sends them only levels with min(h, w) >= 256;
+smaller levels run the plain ops on any device.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from slc_tpu_torch.kernels import _build
+from slc_tpu_torch.ops.unwrap_spatial import MG_OMEGA, _matvec
+
+
+def mg_down_ref(r: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor,
+                dinv: torch.Tensor, omega: float = MG_OMEGA
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: two damped-Jacobi sweeps from e = 0, then
+    the residual (slc_tpu/ops/unwrap_spatial.py:246-249). Returns
+    (e, r - A e)."""
+    e = omega * dinv * r
+    e = e + omega * dinv * (r - _matvec(e, wy, wx))
+    return e, r - _matvec(e, wy, wx)
+
+
+def mg_up_ref(e: torch.Tensor, r: torch.Tensor, wy: torch.Tensor,
+              wx: torch.Tensor, dinv: torch.Tensor,
+              omega: float = MG_OMEGA) -> torch.Tensor:
+    """Plain PyTorch version: two damped-Jacobi post-smooths
+    (slc_tpu/ops/unwrap_spatial.py:261-262)."""
+    for _ in range(2):
+        e = e + omega * dinv * (r - _matvec(e, wy, wx))
+    return e
+
+
+def _require_level(r, wy, wx, dinv, others=()) -> Tuple[int, int]:
+    if r.ndim != 2 or r.numel() == 0:
+        raise ValueError(f"r: expected a non-empty (h, w) tensor, got "
+                         f"{tuple(r.shape)}")
+    h, w = r.shape
+    dev = r.device
+    f32 = torch.float32
+    for t, name in ((r, "r"), (dinv, "dinv")) + tuple(others):
+        _build.require(t, name, f32, (h, w), dev)
+    _build.require(wy, "wy", f32, (h - 1, w), dev)
+    _build.require(wx, "wx", f32, (h, w - 1), dev)
+    return h, w
+
+
+def mg_down_cuda(r: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor,
+                 dinv: torch.Tensor, omega: float = MG_OMEGA
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The hand-written descent kernel. ``r``, ``dinv`` (h, w), ``wy``
+    (h-1, w), ``wx`` (h, w-1): contiguous f32 on one CUDA device."""
+    h, w = _require_level(r, wy, wx, dinv)
+    e = torch.empty_like(r)
+    res = torch.empty_like(r)
+    err = _build.lib().slc_mg_down(
+        r.data_ptr(), wy.data_ptr(), wx.data_ptr(), dinv.data_ptr(),
+        e.data_ptr(), res.data_ptr(), h, w, float(omega),
+        _build.stream_of(r.device))
+    mg_down_cuda.launches += 1
+    _build.check(err, "slc_mg_down")
+    return e, res
+
+
+mg_down_cuda.launches = 0
+
+
+def mg_up_cuda(e: torch.Tensor, r: torch.Tensor, wy: torch.Tensor,
+               wx: torch.Tensor, dinv: torch.Tensor,
+               omega: float = MG_OMEGA) -> torch.Tensor:
+    """The hand-written ascent kernel; shapes as :func:`mg_down_cuda`,
+    ``e`` (h, w)."""
+    h, w = _require_level(r, wy, wx, dinv, ((e, "e"),))
+    out = torch.empty_like(r)
+    err = _build.lib().slc_mg_up(
+        e.data_ptr(), r.data_ptr(), wy.data_ptr(), wx.data_ptr(),
+        dinv.data_ptr(), out.data_ptr(), h, w, float(omega),
+        _build.stream_of(r.device))
+    mg_up_cuda.launches += 1
+    _build.check(err, "slc_mg_up")
+    return out
+
+
+mg_up_cuda.launches = 0
+
+
+def mg_down(r, wy, wx, dinv, omega: float = MG_OMEGA):
+    """Level descent: CPU tensors take the plain version, anything else
+    the kernel."""
+    if r.device.type == "cpu":
+        return mg_down_ref(r, wy, wx, dinv, omega)
+    return mg_down_cuda(r, wy, wx, dinv, omega)
+
+
+def mg_up(e, r, wy, wx, dinv, omega: float = MG_OMEGA):
+    """Level ascent: CPU tensors take the plain version, anything else
+    the kernel."""
+    if r.device.type == "cpu":
+        return mg_up_ref(e, r, wy, wx, dinv, omega)
+    return mg_up_cuda(e, r, wy, wx, dinv, omega)

@@ -1,5 +1,5 @@
 """End-to-end reconstruction runner (PyTorch port of
-slc_tpu/runner.py:41-499, gray mode).
+slc_tpu/runner.py:41-499).
 
 The reference program is ``Init -> CalculateFirst -> CalculateOther``
 over a replay dataset, writing one point cloud per frame
@@ -12,6 +12,7 @@ checkpoints with resume, read-ahead and a background writer.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 import warnings
@@ -23,13 +24,15 @@ import torch
 from slc_tpu_torch import cloud
 from slc_tpu_torch.calib import Calibration, build_tables
 from slc_tpu_torch.checkpoint import latest_checkpoint, load_state, save_state
-from slc_tpu_torch.config import SystemConfig
+from slc_tpu_torch.config import HeterodyneConfig, SystemConfig
 from slc_tpu_torch.dynamic import dynamic_step, init_tracker, reanchor
 from slc_tpu_torch.io.dataset import FaultInjector, ReplayDataset
 from slc_tpu_torch.io.opencv_yaml import load_calibration
 from slc_tpu_torch.metrics import MetricsLog, frame_stats, stage
 from slc_tpu_torch.ops.demod import estimate_period, suggest_lock_window
-from slc_tpu_torch.pipeline import decode_first_frame
+from slc_tpu_torch.pipeline import (decode_first_frame,
+                                    decode_heterodyne_frame,
+                                    decode_spatial_frame)
 
 #: Bytes per pixel of one tracker step, lock on or off: frame u8 + three
 #: carried f32 maps in, six f32 maps out (slc_tpu adds 21 more for the
@@ -76,8 +79,11 @@ def run_replay(dataset_root: str, calib: "Calibration | str",
                stream: bool = True) -> RunReport:
     """Run the reconstruction over a replay dataset on ``device``.
 
-    ``mode``: only "gray" (the reference's Gray+phase frame-0 decode) is
-    ported. ``phase_lock``: "auto" locks to the manifest's
+    ``mode`` is the frame-0 absolute decode: "gray" (the reference's
+    Gray+phase decode), "heterodyne" (the multi-frequency fringe stack,
+    ``vFringeCam*``) or "spatial" (the N phase images, spatially
+    unwrapped: absolute up to one global period offset).
+    ``phase_lock``: "auto" locks to the manifest's
     ``stripe_period`` when it records one, a float forces that period,
     None disables. With the lock on, the carrier period is measured from
     the first dynamic frame against the frame-0 map and logged as a
@@ -93,8 +99,8 @@ def run_replay(dataset_root: str, calib: "Calibration | str",
     Outputs: <out_dir>/iFrame.<ext>, <out_dir>/cFrame{N}.<ext> ("txt"
     for ``out_format`` "xyz", "npz" for "npz") and metrics.jsonl.
     """
-    if mode != "gray":
-        raise ValueError(f"mode {mode!r} is not ported; only 'gray' is")
+    if mode not in ("gray", "heterodyne", "spatial"):
+        raise ValueError(f"unknown mode {mode!r}")
     dev = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     if isinstance(calib, str):
@@ -111,19 +117,36 @@ def run_replay(dataset_root: str, calib: "Calibration | str",
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     # Analytic bytes per stage, so metrics.jsonl reports achieved GB/s:
-    # the decode reads 2B+N u8 planes and writes 4 f32 maps.
+    # a decode reads its u8 planes and writes 4 f32 maps; the spatial
+    # decode's CG iteration count is data-dependent, so it has none.
     px = cfg.cam_h * cfg.cam_w
-    first_bytes = px * (2 * cfg.gray_bits + cfg.phase_steps + 16)
+    het = HeterodyneConfig(phase_steps=cfg.phase_steps)
+    if mode == "heterodyne":
+        first_bytes = px * (het.num_images + 16)
+    elif mode == "gray":
+        first_bytes = px * (2 * cfg.gray_bits + cfg.phase_steps + 16)
+    else:
+        first_bytes = None
     step_bytes = STEP_BYTES_PER_PX * px
 
     # --- frame 0: absolute decode (CalculateFirst) -------------------
-    g0 = to_dev(ds.gray_images())
-    p0 = to_dev(ds.phase_images())
+    if mode == "gray":
+        do_decode = functools.partial(
+            decode_first_frame, to_dev(ds.gray_images()),
+            to_dev(ds.phase_images()), tables, cfg)
+    elif mode == "heterodyne":
+        do_decode = functools.partial(
+            decode_heterodyne_frame,
+            to_dev(ds.fringe_images(het.num_images)), tables, cfg, het)
+    else:
+        do_decode = functools.partial(
+            decode_spatial_frame, to_dev(ds.phase_images()), tables, cfg,
+            float(cfg.phase_period))
     # Warm-up out of the timed stage: on the card the first call builds
     # or loads the kernel library.
-    decode_first_frame(g0, p0, tables, cfg)
+    do_decode()
     with stage("slc/first_frame", log, bytes_moved=first_bytes, device=dev):
-        first = decode_first_frame(g0, p0, tables, cfg)
+        first = do_decode()
     ext = "npz" if out_format == "npz" else "txt"
     write_frame = (cloud.write_cloud_npz if out_format == "npz"
                    else cloud.write_xyz)
@@ -267,9 +290,8 @@ def run_replay(dataset_root: str, calib: "Calibration | str",
             if f in anchor_set:
                 # Periodic absolute re-anchoring from an aFrame{f} group.
                 with stage("slc/reanchor", log, device=dev):
-                    res = decode_first_frame(
-                        to_dev(ds.anchor_gray_images(f)),
-                        to_dev(ds.anchor_phase_images(f)), tables, cfg)
+                    res = _decode_anchor(ds, f, tables, cfg, mode, het,
+                                         to_dev, state.proj_u)
                     state = reanchor(state, to_dev(frame), res.proj_u,
                                      res.z, cfg, subpixel)
                     state = dataclasses.replace(state, frame_idx=f)
@@ -300,3 +322,27 @@ def run_replay(dataset_root: str, calib: "Calibration | str",
 
     log.save(os.path.join(out_dir, "metrics.jsonl"))
     return RunReport(done, n_pts, log)
+
+
+def _decode_anchor(ds, f: int, tables, cfg: SystemConfig, mode: str,
+                   het: HeterodyneConfig, to_dev, prev_proj_u):
+    """Absolute decode of the aFrame{f} pattern group, per mode
+    (slc_tpu/runner.py:476-498).
+
+    ``prev_proj_u`` (the tracker's current absolute map) anchors the
+    spatial mode's unwrap: a spatial decode is absolute only up to one
+    global period offset, so an unanchored re-anchor could snap the
+    sequence onto another fringe order and put a period-sized depth jump
+    mid-sequence. Gray and heterodyne decodes are absolute on their own
+    and ignore it."""
+    if mode == "gray":
+        return decode_first_frame(to_dev(ds.anchor_gray_images(f)),
+                                  to_dev(ds.anchor_phase_images(f)),
+                                  tables, cfg)
+    if mode == "heterodyne":
+        return decode_heterodyne_frame(
+            to_dev(ds.anchor_fringe_images(f, het.num_images)), tables, cfg,
+            het)
+    return decode_spatial_frame(to_dev(ds.anchor_phase_images(f)), tables,
+                                cfg, float(cfg.phase_period),
+                                anchor=prev_proj_u)

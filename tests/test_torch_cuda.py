@@ -14,10 +14,14 @@ import torch
 
 from slc_tpu_torch import synth
 from slc_tpu_torch.calib import build_tables, synthetic_calibration
-from slc_tpu_torch.config import SystemConfig
+from slc_tpu_torch.config import HeterodyneConfig, SystemConfig
+from slc_tpu_torch.kernels import bilateral as kbil
 from slc_tpu_torch.kernels import dynamic_step as kstep
 from slc_tpu_torch.kernels import grayphase as kgray
+from slc_tpu_torch.kernels import heterodyne as khet
+from slc_tpu_torch.kernels import mgsmooth as kmg
 from slc_tpu_torch.kernels import stripe as kstripe
+from slc_tpu_torch.ops import unwrap_spatial as U
 
 torch.set_num_threads(2)
 
@@ -93,3 +97,55 @@ def test_step_kernels(dev, shape, reference_semantics):
     want = kstep.dynamic_step_lock_ref(*args, **lk)
     for i, bar in enumerate((2e-3, 1e-5, 1e-5, 4e-3, 4e-3, 4e-3)):
         _close(got[i:i + 1], want[i:i + 1], bar)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("min_mod", [None, 2.0])
+def test_heterodyne_kernel(dev, shape, min_mod):
+    """Beat-order flips pinned as tests/conftest.py:40-61 pins them: at
+    most 8, each exactly +-1 fine order, no 2x2 block; x, y, z 4e-3 off
+    them, P 2e-3."""
+    cfg, calib, tables = _setup(*shape, dev)
+    het = HeterodyneConfig()
+    imgs, _, _ = synth.render_fringe_stack(
+        calib, cfg, synth.sphere_surface(), het.periods(cfg.pro_w),
+        het.phase_steps, noise_sigma=1.0)
+    f = torch.from_numpy(imgs).to(dev)
+    got = khet.heterodyne_decode_cuda(f, tables, cfg, het, min_mod)
+    want = khet.heterodyne_decode_ref(f, tables, cfg, het, min_mod)
+    err = (got[3] - want[3]).cpu().numpy()
+    div = np.abs(err) >= 1e-2
+    assert div.sum() <= 8
+    fine = het.periods(cfg.pro_w)[0]
+    np.testing.assert_allclose(np.abs(err[div]) / fine, 1.0, atol=0.02)
+    assert not (div[:-1, :-1] & div[1:, :-1] & div[:-1, 1:]
+                & div[1:, 1:]).any()
+    keep = torch.from_numpy(~div).to(dev)
+    for g, e, bar in zip(got, want, (4e-3, 4e-3, 4e-3, 2e-3)):
+        torch.testing.assert_close(g[keep], e[keep], atol=bar, rtol=0)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bilateral_kernel(dev, shape):
+    rng = np.random.default_rng(0)
+    z = 50.0 + rng.normal(0, 0.4, size=shape).astype(np.float32)
+    z[rng.uniform(size=shape) < 0.05] = 0.0
+    img = torch.from_numpy(z).to(dev)
+    _close([kbil.bilateral_filter_cuda(img)], [kbil.bilateral_filter_ref(img)],
+           1e-4)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_mg_level_kernels(dev, shape):
+    """The level kernels round every operation as the plain ops do: 2e-6
+    on O(1) data (tests/test_pallas.py:404-437)."""
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.uniform(0.1, 1.0, shape).astype(np.float32))
+    wy, wx = U.edge_weights(q.to(dev))
+    dinv = 1.0 / U._diag(wy, wx)
+    r, e = (torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)
+                             ).to(dev) for _ in range(2))
+    _close(kmg.mg_down_cuda(r, wy, wx, dinv), kmg.mg_down_ref(r, wy, wx, dinv),
+           2e-6)
+    _close([kmg.mg_up_cuda(e, r, wy, wx, dinv)],
+           [kmg.mg_up_ref(e, r, wy, wx, dinv)], 2e-6)

@@ -1,7 +1,10 @@
 """The whole slice: slc_tpu_torch.runner.run_replay on the CPU against
-slc_tpu.runner.run_replay on one synth dataset, lock on and off, plus the
-CLIs, checkpoint/resume across packages, and a run that proves the port
-never imports jax. Bars: z, x, y 4e-3; valid_frac 1e-3."""
+slc_tpu.runner.run_replay on one synth dataset, lock on and off, in the
+gray, heterodyne and spatial modes, plus the CLIs, checkpoint/resume
+across packages, and a run that proves the port never imports jax.
+Bars: z, x, y 4e-3; valid_frac 1e-3. Spatial clouds are compared on the
+interior [1:-1, 1:-1]: the port's bilateral filter takes out-of-image
+neighbours as missing where slc_tpu's XLA path wraps around."""
 
 import filecmp
 import json
@@ -57,11 +60,22 @@ def _metrics(out):
         return [json.loads(line) for line in f]
 
 
+@pytest.fixture(scope="module")
+def fringe_dataset(tmp_path_factory):
+    """What ``synth --fringes`` writes: a sphere over a plane, moving
+    0.08 per frame, with the gray, phase and fringe stacks of frame 0."""
+    root = str(tmp_path_factory.mktemp("fringes") / "ds")
+    assert main(["synth", root, "--fringes", "--frames", str(N_FRAMES),
+                 *_CFG_FLAGS]) == 0
+    return root
+
+
 def _run_both(dataset, out_root, clouds=True, **kw):
     """Run slc_tpu and the port (CPU) on one dataset with the same
     arguments and compare every frame record, the period diagnostic and,
-    with ``clouds``, every cloud. Returns the port's frame records, the
-    cloud count and the diagnostic count."""
+    with ``clouds``, every cloud (on the interior in spatial mode).
+    Returns the port's frame records, the cloud count and the diagnostic
+    count."""
     calib = os.path.join(dataset, "parameters.yml")
     outs, done = {}, {}
     for name, fn, cfg, extra in (("jax", j_run, JCFG, {}),
@@ -74,12 +88,14 @@ def _run_both(dataset, out_root, clouds=True, **kw):
     files = sorted(f for f in os.listdir(outs["jax"]) if f.endswith(".npz"))
     assert files == sorted(f for f in os.listdir(outs["torch"])
                            if f.endswith(".npz"))
+    inner = ((slice(1, -1), slice(1, -1)) if kw.get("mode") == "spatial"
+             else (slice(None), slice(None)))
     for f in files if clouds else ():
         want = np.load(os.path.join(outs["jax"], f))
         got = np.load(os.path.join(outs["torch"], f))
         for k in ("z", "x", "y"):
-            np.testing.assert_allclose(got[k], want[k], atol=4e-3,
-                                       err_msg=f"{f}:{k}")
+            np.testing.assert_allclose(got[k][inner], want[k][inner],
+                                       atol=4e-3, err_msg=f"{f}:{k}")
     mj, mt = _metrics(outs["jax"]), _metrics(outs["torch"])
     fj = [r for r in mj if "frame" in r]
     ft = [r for r in mt if "frame" in r]
@@ -124,6 +140,46 @@ def test_run_replay_variants_match_jax(dataset, tmp_path, variant):
         assert faults, "expected dropped frames with p=0.5"
 
 
+@pytest.mark.parametrize("mode", ["heterodyne", "spatial"])
+def test_run_replay_modes_match_jax(fringe_dataset, tmp_path, mode):
+    """The heterodyne and spatial frame-0 decodes, then locked tracking,
+    as in slc_tpu."""
+    frames, n_clouds, n_diag = _run_both(fringe_dataset, tmp_path, mode=mode)
+    assert n_clouds == N_FRAMES and len(frames) == N_FRAMES and n_diag == 1
+    assert frames[0]["valid_frac"] > 0.9
+
+
+def test_spatial_reanchor_keeps_fringe_order(tmp_path):
+    """tests/test_runner.py:233-275 on the port: the spatial re-anchor is
+    pinned to the tracker's absolute map, so frames 3 -> 4 -> 5 move by
+    about dz, not by a fringe period, and slc_tpu writes the same
+    clouds."""
+    from slc_tpu.io.dataset import write_anchor_group
+    root = str(tmp_path / "ds")
+    calib = synthetic_calibration(cam_h=96, cam_w=160, pro_h=96, pro_w=640)
+    z0, dz = 50.0, 0.3
+    scene = jsynth.render_static_scene(calib, JCFG, jsynth.plane_surface(z0),
+                                       noise_sigma=1.0)
+    frames, _, _ = jsynth.render_dynamic_sequence(
+        calib, JCFG, 6, z0=z0, dz_per_frame=dz, stripe_period=12,
+        noise_sigma=1.0)
+    write_replay_dataset(root, scene.gray_images, scene.phase_images,
+                         frames)
+    asc = jsynth.render_static_scene(calib, JCFG,
+                                     jsynth.plane_surface(z0 + 4 * dz),
+                                     noise_sigma=1.0, seed=5)
+    write_anchor_group(root, 4, asc.gray_images, asc.phase_images)
+    save_calibration(os.path.join(root, "parameters.yml"), calib)
+    recs, _, _ = _run_both(root, tmp_path, mode="spatial")
+    assert [r["frame"] for r in recs if r.get("reanchor")] == [4]
+    med = {}
+    for f in (3, 4, 5):
+        z = np.load(str(tmp_path / "torch" / f"cFrame{f}.npz"))["z"]
+        med[f] = np.median(z[z > 0])
+    assert abs(med[4] - med[3]) < 5 * dz, med
+    assert abs(med[5] - med[4]) < 5 * dz, med
+
+
 def test_anchored_run_matches_jax(tmp_path):
     """A synth dataset with absolute anchor groups: the gray re-anchor
     path (decode kernel + stripe kernel on the card) as in slc_tpu."""
@@ -134,10 +190,13 @@ def test_anchored_run_matches_jax(tmp_path):
     assert [r["frame"] for r in frames if r.get("reanchor")] == [3, 6]
 
 
-def test_synth_clis_write_identical_datasets(tmp_path):
+@pytest.mark.parametrize("extra", [["--anchor-every", "2"],
+                                   ["--fringes", "--scene", "plane"]],
+                         ids=["anchors", "fringes"])
+def test_synth_clis_write_identical_datasets(tmp_path, extra):
     """A dataset either CLI writes is the other's, byte for byte."""
     args = ["--frames", "3", "--cam", "96x160", "--pro", "96x640",
-            "--gray-bits", "5", "--anchor-every", "2"]
+            "--gray-bits", "5", *extra]
     dj, dt = str(tmp_path / "jax"), str(tmp_path / "torch")
     assert j_main(["synth", dj, *args]) == 0
     assert main(["synth", dt, *args]) == 0
@@ -154,6 +213,8 @@ def test_synth_clis_write_identical_datasets(tmp_path):
             walk(sc, f"{prefix}/{sub}")
     walk(cmp, "")
     assert "manifest.json" in names and "dynaCam2.bmp" in names
+    if "--fringes" in extra:
+        assert "vFringeCam11.bmp" in names
 
 
 def test_cli_run_on_cpu(tmp_path, dataset, capsys):
@@ -167,9 +228,20 @@ def test_cli_run_on_cpu(tmp_path, dataset, capsys):
     assert os.path.exists(os.path.join(out, f"cFrame{N_FRAMES - 1}.txt"))
 
 
-@pytest.mark.parametrize("flags", [["--mode", "heterodyne"],
-                                   ["--mode", "spatial"],
-                                   ["--chunk", "4"], ["--fast-subpixel"],
+@pytest.mark.parametrize("mode", ["heterodyne", "spatial"])
+def test_cli_runs_modes_on_cpu(tmp_path, fringe_dataset, mode, capsys):
+    out = str(tmp_path / "o")
+    assert main(["run", fringe_dataset, "--calib",
+                 os.path.join(fringe_dataset, "parameters.yml"), "--out",
+                 out, "--out-format", "npz", "--device", "cpu", "--mode",
+                 mode, *_CFG_FLAGS]) == 0
+    assert f"done: frames={N_FRAMES - 1}" in capsys.readouterr().out
+    z = np.load(os.path.join(out, "iFrame.npz"))["z"]
+    assert (z > 0).mean() > 0.9
+    assert os.path.exists(os.path.join(out, f"cFrame{N_FRAMES - 1}.npz"))
+
+
+@pytest.mark.parametrize("flags", [["--chunk", "4"], ["--fast-subpixel"],
                                    ["--preview"], ["--save-depth"]])
 def test_cli_rejects_flags_not_ported(tmp_path, dataset, flags, capsys):
     with pytest.raises(SystemExit) as e:
@@ -177,12 +249,6 @@ def test_cli_rejects_flags_not_ported(tmp_path, dataset, flags, capsys):
               os.path.join(dataset, "parameters.yml"), "--out",
               str(tmp_path / "o"), "--device", "cpu", *flags])
     assert e.value.code != 0
-    assert "not ported" in capsys.readouterr().err
-
-
-def test_cli_rejects_synth_fringes(tmp_path, capsys):
-    with pytest.raises(SystemExit):
-        main(["synth", str(tmp_path / "d"), "--fringes"])
     assert "not ported" in capsys.readouterr().err
 
 
@@ -239,8 +305,8 @@ def test_npz_checkpoint_resumes_across_packages(tmp_path, dataset,
 
 
 def test_port_never_imports_jax(tmp_path):
-    """With jax and slc_tpu made unimportable, synth -> run still works
-    end to end on the CPU."""
+    """With jax and slc_tpu made unimportable, synth --fringes -> run in
+    every mode still works end to end on the CPU."""
     script = textwrap.dedent(f"""
         import sys
         sys.modules["jax"] = None
@@ -251,10 +317,12 @@ def test_port_never_imports_jax(tmp_path):
         from slc_tpu_torch.__main__ import main
         ds, out = {str(tmp_path / "ds")!r}, {str(tmp_path / "o")!r}
         assert main(["synth", ds, "--frames", "3", "--cam", "64x96",
-                     "--pro", "64x640", "--gray-bits", "5"]) == 0
-        assert main(["run", ds, "--calib", ds + "/parameters.yml",
-                     "--out", out, "--out-format", "npz",
-                     "--device", "cpu"]) == 0
+                     "--pro", "64x640", "--gray-bits", "5",
+                     "--fringes"]) == 0
+        for mode in ("gray", "heterodyne", "spatial"):
+            assert main(["run", ds, "--calib", ds + "/parameters.yml",
+                         "--out", out + "/" + mode, "--out-format", "npz",
+                         "--device", "cpu", "--mode", mode]) == 0
         loaded = [m for m, mod in sys.modules.items() if mod is not None
                   and m.split(".")[0] in ("jax", "jaxlib", "slc_tpu")]
         assert not loaded, loaded
@@ -265,5 +333,6 @@ def test_port_never_imports_jax(tmp_path):
                           cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("OK")
-    z = np.load(tmp_path / "o" / "cFrame2.npz")["z"]
-    assert (z > 0).mean() > 0.9
+    for mode in ("gray", "heterodyne", "spatial"):
+        z = np.load(tmp_path / "o" / mode / "cFrame2.npz")["z"]
+        assert (z > 0).mean() > 0.9, mode
