@@ -1,26 +1,45 @@
 #!/usr/bin/env python3
 """Smoke test of slc_tpu_torch on one CUDA card: build, kernel parity,
-kernel timing, and the replay paths end to end.
+the device-timing path, and the replay paths end to end.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout. In order it:
 
 1. requires CUDA and prints the card (``nvidia-smi``), torch and CUDA;
-2. builds the eight CUDA kernels from ``slc_tpu_torch/kernels/csrc`` into
+2. builds the ten CUDA kernels from ``slc_tpu_torch/kernels/csrc`` into
    one library (one nvcc per source, all started together);
 3. holds each kernel against its plain PyTorch version, both on the card,
    at the reference shape 1024x1280 and a ragged 1000x1270, on rendered
    inputs (a random frame for the stripe kernel, random O(1) levels for
-   the multigrid kernels), at the bars of the CPU parity tests;
-4. times each kernel and its plain version at 1024x1280 with CUDA events
-   (median of 25 calls after warm-up);
+   the multigrid kernels), at the bars of the CPU parity tests; the
+   stripe and step kernels also in fast sub-pixel mode (``frac_bits=7``)
+   against the quantizing plain versions; the access-pattern floors
+   exactly; and the two-kernel locked step (open-loop step, then the
+   standalone lock on its P) bit for bit against the fused one;
+4. drives the device-timing path (``slc_tpu_torch.devtime``) at
+   1024x1280, with the launch counts set to 0 just before and checked
+   just after: each kernel and its plain version as the device time of
+   the call (CUDA events, plain/kernel/kernel/plain, the mean of 20
+   calls after 3 warm-ups), and each kernel's launches alone (20 calls
+   captured back to back in one CUDA graph, the mean over 3 replays
+   queued behind a spin kernel); the fast sub-pixel
+   kernels; the two-kernel vs the fused locked step; the locked step's
+   stages (``ablate``). Where ``torch.profiler`` records CUDA kernels
+   (CUPTI tracing may be denied), also the plain versions' kernels alone
+   and the locked step by launch, from its records; where it does not,
+   those lines say "not measured". Then one roofline line per kernel
+   from its kernels-alone time:
+   device ms, bytes per pixel, GB/s, % of the card's HBM peak and, for
+   stripe and bilateral, % of the measured floor of their access
+   pattern;
 5. runs ``python -m slc_tpu_torch run`` through ``main()``, each run with
    the launch counts set to 0 just before it and read just after, and
    each count required to equal the calls the runner makes:
-   - gray mode on a 30-frame moving-plane dataset, phase lock on and off:
-     the locked depth error at the last frame must be below 0.05 scene
-     units and below half the free-running error;
+   - gray mode on a 30-frame moving-plane dataset, phase lock on, off,
+     and on with ``--fast-subpixel``: each locked depth error at the last
+     frame must be below 0.05 scene units and below half the
+     free-running error;
    - on a 10-frame dataset with the heterodyne fringe stack,
      ``--mode heterodyne`` (lock on): the median depth error of frame 0
      and of the last frame must be below 0.05;
@@ -32,12 +51,15 @@ Run from the root of a checkout. In order it:
      ``cg_iters + 1`` calls per decode, ``cg_iters`` taken from a direct
      ``unwrap_spatial(..., return_info=True)`` on the same input.
 
-Any failure ends the script with a non-zero exit. The last line of its
+``--no-profiler`` leaves ``torch.profiler`` out of phase 4, as where it
+records no CUDA kernel. Any failure ends the script with a non-zero
+exit. The last line of its
 output is one JSON object: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -50,7 +72,7 @@ import time
 import numpy as np
 import torch
 
-from slc_tpu_torch import synth
+from slc_tpu_torch import devtime, synth
 from slc_tpu_torch.__main__ import main as slc_main
 from slc_tpu_torch.calib import build_tables, synthetic_calibration
 from slc_tpu_torch.config import REFERENCE_CONFIG, HeterodyneConfig
@@ -59,9 +81,11 @@ from slc_tpu_torch.io.opencv_yaml import save_calibration
 from slc_tpu_torch.kernels import _build
 from slc_tpu_torch.kernels import bilateral as kbil
 from slc_tpu_torch.kernels import dynamic_step as kstep
+from slc_tpu_torch.kernels import floors as kfl
 from slc_tpu_torch.kernels import grayphase as kgray
 from slc_tpu_torch.kernels import heterodyne as khet
 from slc_tpu_torch.kernels import mgsmooth as kmg
+from slc_tpu_torch.kernels import phaselock as kpl
 from slc_tpu_torch.kernels import stripe as kstripe
 from slc_tpu_torch.ops import unwrap_spatial as U
 from slc_tpu_torch.ops.demod import suggest_lock_window
@@ -77,9 +101,9 @@ LOCK_T = 12.0
 HET = HeterodyneConfig()
 
 # Bars (tests/test_torch_*.py): decode P 2e-3, x/y/z 8e-3; strips 1e-5;
-# locked step P 2e-3, z/x 4e-3; open-loop P 2e-4, z 2e-3, x 2e-4;
-# heterodyne P 2e-3, x/y/z 4e-3 off the pinned flips; bilateral 1e-4;
-# multigrid levels 2e-6 on O(1) data.
+# locked step and standalone lock P 2e-3, z/x 4e-3; open-loop P 2e-4,
+# z 2e-3, x 2e-4; heterodyne P 2e-3, x/y/z 4e-3 off the pinned flips;
+# bilateral 1e-4; multigrid levels 2e-6 on O(1) data; floors exact.
 BARS = {
     "grayphase": {"proj_u": 2e-3, "x": 8e-3, "y": 8e-3, "z": 8e-3},
     "stripe": {"strip_w": 1e-5, "strip_b": 1e-5},
@@ -92,7 +116,18 @@ BARS = {
     "bilateral": {"z": 1e-4},
     "mg_down": {"e": 2e-6, "res": 2e-6},
     "mg_up": {"e": 2e-6},
+    "phase_lock": {"proj_u": 2e-3, "z": 4e-3, "x": 4e-3, "y": 4e-3},
+    "halo_block_floor": {"o0": 0.0, "o1": 0.0},
 }
+LOCK_OUT = ("proj_u", "z", "x", "y")
+#: Device timing: calls per timed function (devtime's defaults).
+TIME_N, TIME_WARMUP = 20, 3
+#: Bytes each kernel must move per pixel (PERF.md section 3); the floors
+#: move those of the kernel whose pattern they read.
+BYTES_PER_PX = {"grayphase": 32, "stripe": 9, "dynamic_step_lock": 37,
+                "dynamic_step": 37, "heterodyne": 28, "bilateral": 8,
+                "mg_down": 24, "mg_up": 24, "phase_lock": 21,
+                "floor_stripe": 9, "floor_bilateral": 8}
 STEP_OUT = ("proj_u", "strip_w", "strip_b", "z", "x", "y")
 #: The locked step's per-pixel arccos refinement takes, of the two
 #: readings +-phi, the one nearer the window-corrected prediction
@@ -174,6 +209,10 @@ def compare(name, got, want, keys, errs, flips=0, flip_order=None):
         errs[name] = max(errs.get(name, 0.0), err)
 
 
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def cfg_for(h, w):
     return dataclasses.replace(REFERENCE_CONFIG, cam_h=h, cam_w=w)
 
@@ -213,10 +252,15 @@ def parity(dev, errs, inputs):
         rand = np.random.default_rng(0).integers(0, 256, (h, w), np.uint8)
         for frame in (rand, frames[1]):
             f = torch.from_numpy(frame).to(dev)
-            for sub in (True, False):
-                compare("stripe", kstripe.stripe_regression_cuda(f, 21, sub),
-                        kstripe.stripe_regression_ref(f, 21, sub),
+            for sub, frac in ((True, 0), (False, 0), (True, 7)):
+                compare("stripe",
+                        kstripe.stripe_regression_cuda(f, 21, sub, frac),
+                        kstripe.stripe_regression_ref(f, 21, sub, frac),
                         ("strip_w", "strip_b"), errs)
+            floor = kfl.halo_block_floor_cuda(f, 21 // 2, 2)
+            compare("halo_block_floor", floor,
+                    kfl.halo_block_floor_ref(f, 21 // 2, 2), ("o0", "o1"),
+                    errs)
 
         f0 = torch.from_numpy(frames[0]).to(dev)
         f1 = torch.from_numpy(frames[1]).to(dev)
@@ -225,18 +269,50 @@ def parity(dev, errs, inputs):
         win = suggest_lock_window(pu_gt[0], LOCK_T)
         log(f"  suggested lock window {win}")
         args = (f1, sw0, sb0, pu0, tables)
-        for ref in (False, True):
+        for ref, frac in ((False, 0), (True, 0), (False, 7)):
             kw = dict(window=cfg.reco_window, subpixel=not ref,
                       scale_gradient=not ref, robust=not ref,
-                      fov_min=cfg.fov_min, fov_max=cfg.fov_max)
-            compare("dynamic_step", kstep.dynamic_step_open_cuda(*args, **kw),
+                      fov_min=cfg.fov_min, fov_max=cfg.fov_max,
+                      frac_bits=frac)
+            opened = kstep.dynamic_step_open_cuda(*args, **kw)
+            if not ref and not frac:
+                p_open = opened[0]
+            compare("dynamic_step", opened,
                     kstep.dynamic_step_open_ref(*args, **kw), STEP_OUT, errs)
             for win_u in sorted({21, win}):
                 lk = dict(kw, period=LOCK_T, win_u=win_u, win_v=9)
-                compare("dynamic_step_lock",
-                        kstep.dynamic_step_lock_cuda(*args, **lk),
+                fused = kstep.dynamic_step_lock_cuda(*args, **lk)
+                compare("dynamic_step_lock", fused,
                         kstep.dynamic_step_lock_ref(*args, **lk), STEP_OUT,
                         errs, flips=LOCK_FLIPS)
+                # The two-kernel form: the standalone lock on the
+                # open-loop step's P runs the same launches.
+                lock = kpl.phase_lock_cuda(
+                    f1, opened[0], tables, period=LOCK_T, win_u=win_u,
+                    win_v=9, fov_min=cfg.fov_min, fov_max=cfg.fov_max)
+                two = lock[:1] + opened[1:3] + lock[1:]
+                same = all(torch.equal(a, b) for a, b in zip(two, fused))
+                log(f"  two-kernel vs fused locked step (frac_bits {frac}, "
+                    f"win_u {win_u}): {'bit-identical' if same else 'DIFFER'}")
+                require(same, "the two-kernel locked step differs from the "
+                              "fused one")
+
+        # The standalone lock on the open-loop step's P, as in the
+        # two-kernel step, with a hole band cut in (tests/test_pallas.py:
+        # 311), which must stay a hole.
+        pred = p_open.clone()
+        pred[:, 40:48] = 0.0
+        keep = pred.clone()
+        for win_u in sorted({21, win}):
+            pk = dict(period=LOCK_T, win_u=win_u, win_v=9,
+                      fov_min=cfg.fov_min, fov_max=cfg.fov_max)
+            got = kpl.phase_lock_cuda(f1, pred, tables, **pk)
+            require(torch.equal(pred, keep), "phase_lock changed its input")
+            require(bool((got[0][:, 42:46] == 0).all()),
+                    "phase_lock corrected the hole band")
+            compare("phase_lock", got, kpl.phase_lock_ref(f1, pred, tables,
+                                                          **pk),
+                    LOCK_OUT, errs, flips=LOCK_FLIPS)
 
         fringes, _, _ = synth.render_fringe_stack(
             calib, cfg, synth.sphere_surface(), HET.periods(cfg.pro_w),
@@ -256,6 +332,8 @@ def parity(dev, errs, inputs):
         depth[torch.from_numpy(holes).to(dev)] = 0.0
         compare("bilateral", (kbil.bilateral_filter_cuda(depth),),
                 (kbil.bilateral_filter_ref(depth),), ("z",), errs)
+        compare("halo_block_floor", kfl.halo_block_floor_cuda(depth, 1, 1),
+                kfl.halo_block_floor_ref(depth, 1, 1), ("o0",), errs)
 
         r, e, wy, wx, dinv = mg_level(dev, h, w)
         compare("mg_down", kmg.mg_down_cuda(r, wy, wx, dinv),
@@ -265,41 +343,71 @@ def parity(dev, errs, inputs):
         if (h, w) == SHAPES[0]:
             inputs.update(g=g, p=p, tables=tables, cfg=cfg, frame=f1,
                           step_args=args, win=win, fringes=fr, depth=depth,
-                          level=(r, e, wy, wx, dinv))
+                          level=(r, e, wy, wx, dinv), pred=pred)
 
 
-def time_call(fn, runs=25, warmup=3):
-    """Median ms per call between CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        fn()
-        t1.record()
-        t1.synchronize()
-        times.append(t0.elapsed_time(t1))
-    return statistics.median(times)
-
-
-def timing(inputs):
-    """Phase 4: kernel vs plain version at 1024x1280."""
+def timing(inputs, card, use_profiler=True):
+    """Phase 4, the device-timing path at 1024x1280. Two device times
+    per function: the call (CUDA events around it, so the host's gaps
+    between its launches count: the wrappers' Python and ctypes time
+    shows in a short kernel's call) and its kernels alone (a kernel's
+    calls captured in a CUDA graph and replayed; a plain version's from
+    the profiler's records, None where the profiler records no CUDA
+    kernel). Returns {name: (kernel call ms, plain call ms, kernel device
+    ms, plain device ms)} and the launch count each kernel must show
+    (every call of a wrapper launches it once, a captured one too; graph
+    replays call no wrapper)."""
     g, p, tables, cfg = (inputs[k] for k in ("g", "p", "tables", "cfg"))
-    args = inputs["step_args"]
+    args, frame, pred = inputs["step_args"], inputs["frame"], inputs["pred"]
     fr, depth = inputs["fringes"], inputs["depth"]
     r, e, wy, wx, dinv = inputs["level"]
     kw = dict(window=cfg.reco_window, fov_min=cfg.fov_min,
               fov_max=cfg.fov_max)
     lk = dict(kw, period=LOCK_T, win_u=inputs["win"], win_v=9)
+    pk = dict(period=LOCK_T, win_u=inputs["win"], win_v=9,
+              fov_min=cfg.fov_min, fov_max=cfg.fov_max)
+    halo = cfg.reco_window // 2
+    expect = {k: 0 for k in WRAPPERS}
+    prof = {"on": use_profiler and devtime.profiler_sees_cuda()}
+    log("torch.profiler records CUDA kernels: "
+        + ("yes" if prof["on"] else "not used" if not use_profiler else
+           "no (CUPTI tracing is not available to this process)")
+        + ("" if prof["on"] else ": the plain versions' kernels alone and "
+           "the locked step by launch are not measured"))
+
+    def dev_ms(fn, *kernels, match=None):
+        """CUDA events around each call, or with ``match`` the profiler's
+        kernel records (None, and the profiler left out from then on, if
+        it is off or a session records no CUDA kernel)."""
+        if match is not None and not prof["on"]:
+            return None
+        for k in kernels:
+            expect[k] += TIME_WARMUP + TIME_N
+        try:
+            return 1e3 * devtime.device_time_s(fn, TIME_N, match,
+                                               TIME_WARMUP)
+        except devtime.ProfilerUnavailable as e:
+            log(f"torch.profiler: {e}; not used from here on")
+            prof["on"] = False
+            return None
+
+    def alone_ms(fn, *kernels):
+        """The kernels alone: 20 calls in one CUDA graph, replayed."""
+        for k in kernels:
+            expect[k] += TIME_WARMUP + TIME_N
+        return 1e3 * devtime.graph_time_s(fn, TIME_N, TIME_WARMUP)
+
+    def two_kernel_step(frac=0):
+        opened = kstep.dynamic_step_open_cuda(*args, **kw, frac_bits=frac)
+        return kpl.phase_lock_cuda(frame, opened[0], tables, **pk)
+
     pairs = {
         "grayphase": (
             lambda: kgray.grayphase_decode_cuda(g, p, tables, cfg),
             lambda: kgray.grayphase_decode_ref(g, p, tables, cfg)),
         "stripe": (
-            lambda: kstripe.stripe_regression_cuda(inputs["frame"], 21),
-            lambda: kstripe.stripe_regression_ref(inputs["frame"], 21)),
+            lambda: kstripe.stripe_regression_cuda(frame, 21),
+            lambda: kstripe.stripe_regression_ref(frame, 21)),
         "dynamic_step_lock": (
             lambda: kstep.dynamic_step_lock_cuda(*args, **lk),
             lambda: kstep.dynamic_step_lock_ref(*args, **lk)),
@@ -315,19 +423,103 @@ def timing(inputs):
                     lambda: kmg.mg_down_ref(r, wy, wx, dinv)),
         "mg_up": (lambda: kmg.mg_up_cuda(e, r, wy, wx, dinv),
                   lambda: kmg.mg_up_ref(e, r, wy, wx, dinv)),
+        "phase_lock": (lambda: kpl.phase_lock_cuda(frame, pred, tables,
+                                                   **pk),
+                       lambda: kpl.phase_lock_ref(frame, pred, tables,
+                                                  **pk)),
+        "floor_stripe": (
+            lambda: kfl.halo_block_floor_cuda(frame, halo, 2),
+            lambda: kfl.halo_block_floor_ref(frame, halo, 2)),
+        "floor_bilateral": (
+            lambda: kfl.halo_block_floor_cuda(depth, 1, 1),
+            lambda: kfl.halo_block_floor_ref(depth, 1, 1)),
     }
+    wrapper_of = {"floor_stripe": "halo_block_floor",
+                  "floor_bilateral": "halo_block_floor"}
     out = {}
     for name, (kern, plain) in pairs.items():
-        # plain, kernel, kernel, plain: the median of each pair's two.
-        t_p1 = time_call(plain)
-        t_k1 = time_call(kern)
-        t_k2 = time_call(kern)
-        t_p2 = time_call(plain)
-        out[name] = ((t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2)
-        log(f"time {name} at 1024x1280: kernel {out[name][0]:.4f} ms "
-            f"({t_k1:.4f}, {t_k2:.4f}), plain {out[name][1]:.4f} ms "
-            f"({t_p1:.4f}, {t_p2:.4f})")
-    return out
+        # plain, kernel, kernel, plain: the mean of each side's two.
+        wrapper = wrapper_of.get(name, name)
+        t_p1 = dev_ms(plain)
+        t_k1 = dev_ms(kern, wrapper)
+        t_k2 = dev_ms(kern, wrapper)
+        t_p2 = dev_ms(plain)
+        k_dev = alone_ms(kern, wrapper)
+        line = (f"time {name} at 1024x1280: call kernel "
+                f"{(t_k1 + t_k2) / 2:.4f} ms ({t_k1:.4f}, {t_k2:.4f}), "
+                f"plain {(t_p1 + t_p2) / 2:.4f} ms ({t_p1:.4f}, "
+                f"{t_p2:.4f}); kernels alone: kernel {k_dev:.4f} ms "
+                f"(graph)")
+        k_prof = dev_ms(kern, wrapper, match="")
+        p_dev = dev_ms(plain, match="")
+        line += (f", {fmt_ms(k_prof)} (profiler); plain {fmt_ms(p_dev)} "
+                 f"(profiler)")
+        out[name] = ((t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2, k_dev, p_dev)
+        log(line)
+
+    # Fast sub-pixel mode vs exact, and the two-kernel vs the fused
+    # locked step, in turns (exact, fast, fast, exact), kernels alone.
+    variants = {
+        "stripe": (lambda f: (lambda: kstripe.stripe_regression_cuda(
+            frame, 21, True, f)), ("stripe",)),
+        "dynamic_step": (lambda f: (lambda: kstep.dynamic_step_open_cuda(
+            *args, **kw, frac_bits=f)), ("dynamic_step",)),
+        "dynamic_step_lock": (lambda f: (
+            lambda: kstep.dynamic_step_lock_cuda(*args, **lk, frac_bits=f)),
+            ("dynamic_step_lock",)),
+        "two_kernel_locked_step": (lambda f: (lambda: two_kernel_step(f)),
+                                   ("dynamic_step", "phase_lock")),
+    }
+    for name, (make, kernels) in variants.items():
+        t = [alone_ms(make(f), *kernels) for f in (0, 7, 7, 0)]
+        log(f"time {name} at 1024x1280, frac_bits 7 vs 0: "
+            f"{(t[1] + t[2]) / 2:.4f} ms ({t[1]:.4f}, {t[2]:.4f}) vs "
+            f"{(t[0] + t[3]) / 2:.4f} ms ({t[0]:.4f}, {t[3]:.4f})")
+    def fused_step():
+        return kstep.dynamic_step_lock_cuda(*args, **lk)
+
+    fused = [f(fused_step, "dynamic_step_lock") for f in (dev_ms, alone_ms)]
+    two = [f(two_kernel_step, "dynamic_step", "phase_lock")
+           for f in (dev_ms, alone_ms)]
+    log(f"time locked step at 1024x1280, call / kernels alone: fused "
+        f"{fused[0]:.4f} / {fused[1]:.4f} ms, two-kernel (open-loop step "
+        f"+ phase_lock) {two[0]:.4f} / {two[1]:.4f} ms")
+
+    # The locked step by stage (cumulative: the launches stop after the
+    # stage) and, where the profiler records kernels, by launch.
+    stages = {ab: alone_ms(lambda: kstep.dynamic_step_lock_cuda(
+        *args, **lk, ablate=ab), "dynamic_step_lock")
+        for ab in ("track", "dc", "corr", "")}
+    log("locked step stages, cumulative device ms (graph): "
+        + ", ".join(f"{k or 'all'} {v:.4f}" for k, v in stages.items()))
+    launches = {k: dev_ms(fused_step, "dynamic_step_lock", match=k)
+                for k in ("track_kernel", "row_tri_kernel",
+                          "col_tri_kernel", "finish_kernel", "snap_kernel")}
+    log("locked step launches, device ms per step (profiler): "
+        + ", ".join(f"{k} {fmt_ms(v)}" for k, v in launches.items())
+        + (f" (sum {sum(launches.values()):.4f} ms)"
+           if None not in launches.values() else ""))
+
+    # Rooflines: bytes the kernel must move over its kernels' device
+    # time.
+    px = cfg.cam_h * cfg.cam_w
+    peak = devtime.HBM_PEAK_GBPS.get(torch.cuda.get_device_name(0))
+    log(f"rooflines at 1024x1280 on {card}, HBM peak "
+        + (f"{peak:g} GB/s (published)" if peak else "not in the table"))
+    floor_of = {"stripe": "floor_stripe", "bilateral": "floor_bilateral"}
+    for name, (_, _, ms, _) in out.items():
+        bpp = BYTES_PER_PX[name]
+        gbs = bpp * px / (ms * 1e-3) / 1e9
+        line = (f"roofline {name}: {ms:.4f} ms, {bpp} B/px, "
+                f"{gbs:.1f} GB/s")
+        if peak:
+            line += f", {100.0 * gbs / peak:.1f}% of HBM peak"
+        if name in floor_of:
+            fl = out[floor_of[name]][2]
+            line += (f", {100.0 * fl / ms:.1f}% of the measured floor "
+                     f"({fl:.4f} ms)")
+        log(line)
+    return out, expect
 
 
 #: The kernel wrappers, each with its ``launches`` count.
@@ -338,17 +530,27 @@ WRAPPERS = {"grayphase": kgray.grayphase_decode_cuda,
             "heterodyne": khet.heterodyne_decode_cuda,
             "bilateral": kbil.bilateral_filter_cuda,
             "mg_down": kmg.mg_down_cuda,
-            "mg_up": kmg.mg_up_cuda}
+            "mg_up": kmg.mg_up_cuda,
+            "phase_lock": kpl.phase_lock_cuda,
+            "halo_block_floor": kfl.halo_block_floor_cuda}
+
+
+def reset_counts():
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+
+
+def read_counts():
+    return {k: w.launches for k, w in WRAPPERS.items()}
 
 
 def counted_run(argv, expected_fn):
     """One ``main(["run", ...])`` with every launch count set to 0 just
     before it and read just after; the counts must equal
     ``expected_fn()`` (evaluated after the run) exactly."""
-    for wrapper in WRAPPERS.values():
-        wrapper.launches = 0
+    reset_counts()
     rc = slc_main(["run", *argv, "--out-format", "npz", "--device", "cuda"])
-    got = {k: w.launches for k, w in WRAPPERS.items()}
+    got = read_counts()
     require(rc == 0, f"run {argv} exited {rc}")
     want = {k: 0 for k in WRAPPERS}
     want.update(expected_fn())
@@ -373,7 +575,8 @@ def median_err(z, z_gt, margin):
 
 
 def gray_runs(launches):
-    """Phase 5a: the gray replay path through the CLI, lock on and off."""
+    """Phase 5a: the gray replay path through the CLI, lock on and off,
+    and lock on in fast sub-pixel mode."""
     cfg = REFERENCE_CONFIG
     calib = synthetic_calibration(cam_h=cfg.cam_h, cam_w=cfg.cam_w,
                                   pro_h=cfg.pro_h, pro_w=cfg.pro_w)
@@ -400,7 +603,8 @@ def gray_runs(launches):
     errs = {}
     for name, extra, step in (
             ("locked", [], "dynamic_step_lock"),
-            ("free", ["--phase-lock", "off"], "dynamic_step")):
+            ("free", ["--phase-lock", "off"], "dynamic_step"),
+            ("fast", ["--fast-subpixel"], "dynamic_step_lock")):
         out = os.path.join(WORK, name)
         got = counted_run(
             [ds, "--calib", os.path.join(ds, "parameters.yml"), "--out", out,
@@ -419,9 +623,10 @@ def gray_runs(launches):
             f"step median {statistics.median(steps):.3f} ms, "
             f"fps median {statistics.median(fps):.1f}, "
             f"decode {recs[0]['t_first_frame_ms']:.3f} ms")
-    require(errs["locked"] < 0.05, f"locked error too large: {errs}")
-    require(errs["locked"] < 0.5 * errs["free"],
-            f"locked error not below half the free-running one: {errs}")
+    for name in ("locked", "fast"):
+        require(errs[name] < 0.05, f"{name} error too large: {errs}")
+        require(errs[name] < 0.5 * errs["free"],
+                f"{name} error not below half the free-running one: {errs}")
 
 
 def mg_launches_per_cycle(h, w):
@@ -545,13 +750,18 @@ def fringe_runs(dev, launches):
     require(cong >= 0.99, f"spatial P congruent on only {cong}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--no-profiler", action="store_true",
+                    help="time without torch.profiler (phase 4)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    log(card_line())
+    card = card_line()
+    log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -564,7 +774,14 @@ def main() -> int:
     try:
         errs, inputs = {}, {}
         parity(dev, errs, inputs)
-        times = timing(inputs)
+        # The device-timing path, counted like a run.
+        reset_counts()
+        times, expect = timing(inputs, card, not args.no_profiler)
+        got = read_counts()
+        log(f"device-timing path launches {got}")
+        require(got == expect, f"launch counts {got} != expected {expect}")
+        for k, v in got.items():
+            launches[k] += v
         del inputs
         gray_runs(launches)
         fringe_runs(dev, launches)
@@ -582,13 +799,22 @@ def main() -> int:
         "bilateral": ("bilateral.cu", "slc_tpu/pallas/bilateral.py:61"),
         "mg_down": ("mgsmooth.cu", "slc_tpu/pallas/mgsmooth.py:149"),
         "mg_up": ("mgsmooth.cu", "slc_tpu/pallas/mgsmooth.py:178"),
+        "phase_lock": ("dynamic_step.cu", "slc_tpu/pallas/phaselock.py:216"),
+        "halo_block_floor": ("floors.cu", "slc_tpu/pallas/floors.py:25"),
     }
+    # The floor's line carries the stripe pattern's times.
+    times["halo_block_floor"] = times["floor_stripe"]
     kernels = [{"name": name, "route": "cuda",
                 "source": f"slc_tpu_torch/kernels/csrc/{src}",
                 "replaces": rep, "launches": launches[name],
                 "max_abs_err": errs[name], "ms": times[name][0],
-                "plain_ms": times[name][1]}
+                "plain_ms": times[name][1],
+                "kernel_only_ms": times[name][2]}
                for name, (src, rep) in meta.items()]
+    for k in kernels:
+        plain_alone = times[k["name"]][3]
+        if plain_alone is not None:
+            k["plain_kernel_only_ms"] = plain_alone
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

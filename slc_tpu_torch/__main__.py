@@ -66,7 +66,7 @@ def _not_ported(ap: argparse.ArgumentParser, args) -> None:
     if args.cmd == "run":
         if args.chunk != 1:
             bad.append(f"--chunk {args.chunk}")
-        for flag in ("fast_subpixel", "preview", "save_depth"):
+        for flag in ("preview", "save_depth"):
             if getattr(args, flag):
                 bad.append("--" + flag.replace("_", "-"))
     if bad:
@@ -146,7 +146,8 @@ def _cmd_run(args, cfg) -> int:
         scale_gradient=not ref, subpixel=not ref, robust=not ref,
         mode=args.mode, phase_lock=None if ref else lock,
         refine_period=args.refine_period,
-        out_format=args.out_format, stream=not args.strict_loop)
+        out_format=args.out_format, stream=not args.strict_loop,
+        frac_bits=7 if args.fast_subpixel and not ref else 0)
     last = report.metrics.records[-1] if report.metrics.records else {}
     print(f"done: frames={report.frames_done} "
           f"first_frame_points={report.first_frame_points} "
@@ -195,7 +196,9 @@ def main(argv=None) -> int:
     runp.add_argument("--chunk", type=int, default=1,
                       help="frames per dispatch; only 1 is ported")
     runp.add_argument("--fast-subpixel", action="store_true",
-                      help="not ported yet")
+                      help="quantize the tracker's sub-pixel stripe "
+                           "fraction to 7 bits (the winner stays exact; "
+                           "off under --reference-semantics)")
     runp.add_argument("--strict-loop", action="store_true",
                       help="synchronous read->step->write loop instead "
                            "of read-ahead + background writer")

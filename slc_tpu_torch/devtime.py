@@ -1,0 +1,168 @@
+"""Device-side kernel timing on a CUDA card (counterpart of
+slc_tpu/devtime.py:28).
+
+A host clock around a call measures its enqueue, or with a synchronize
+its launch gaps too; what a roofline needs is the time the card spends.
+``device_time_s`` takes it from CUDA events around each call, or, with
+``match``, from the profiler's records of the kernels themselves, which
+splits a call of several launches by kernel. ``graph_time_s`` takes the
+kernels alone without the profiler: calls captured back to back in a
+CUDA graph, its replays queued behind a spin kernel and timed by CUDA
+events.
+
+The profiler needs CUPTI tracing, which a process may be denied, and a
+process's first profiling session may record no kernel while CUPTI
+starts. ``profiler_sees_cuda`` probes for it; ``device_time_s(match=
+...)`` raises :class:`ProfilerUnavailable` when a session records no
+CUDA kernel at all. Without a CUDA device every function raises: a
+device time never falls back to a wall clock.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Callable, Dict, Optional
+
+import torch
+
+#: Published device-memory bandwidth, GB/s, by the name ``nvidia-smi``
+#: and ``torch.cuda.get_device_name`` report (NVIDIA's data sheets). A
+#: card not listed has no "% of peak".
+HBM_PEAK_GBPS = {"NVIDIA H100 80GB HBM3": 3350.0}
+
+
+class ProfilerUnavailable(RuntimeError):
+    """``torch.profiler`` recorded no CUDA kernel at all: CUPTI tracing
+    is not available to this process."""
+
+
+def _require_cuda() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("device timing needs a CUDA device; none is "
+                           "available")
+
+
+def _warm(fn: Callable[[], object], warmup: int) -> None:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+
+
+def _kernel_times_s(fn: Callable[[], object], n: int,
+                    warmup: int) -> Dict[str, float]:
+    """Mean device seconds per call of ``fn``, by CUDA kernel name, from
+    ``torch.profiler`` over ``n`` calls after ``warmup`` calls."""
+    _require_cuda()
+    _warm(fn, warmup)
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    with warnings.catch_warnings():
+        # "Profiler clears events at the end of each cycle": one cycle.
+        warnings.simplefilter("ignore", UserWarning)
+        with prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+    totals: Dict[str, float] = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            totals[e.name] = (totals.get(e.name, 0.0)
+                              + e.time_range.elapsed_us())
+    return {k: v / n / 1e6 for k, v in totals.items()}
+
+
+def profiler_sees_cuda() -> bool:
+    """Whether ``torch.profiler`` records the CUDA kernels of this
+    process: one small elementwise kernel, profiled up to three times
+    (the first session of a process may record none while CUPTI
+    starts)."""
+    _require_cuda()
+    x = torch.ones(1024, device="cuda")
+    return any(_kernel_times_s(lambda: x.add(1.0), 1, 1)
+               for _ in range(3))
+
+
+def device_time_s(fn: Callable[[], object], n: int = 20,
+                  match: Optional[str] = None, warmup: int = 3) -> float:
+    """Mean on-device seconds per call of ``fn``.
+
+    With ``match`` None: CUDA events recorded around each of ``n`` calls
+    after ``warmup`` calls (the host's gaps between a call's launches
+    count). With ``match``: the summed device time of the profiled CUDA
+    kernels whose name contains ``match`` ("" takes every kernel);
+    raises :class:`ProfilerUnavailable` if the profiler recorded no CUDA
+    kernel at all, RuntimeError if none matches."""
+    if match is not None:
+        times = _kernel_times_s(fn, n, warmup)
+        if not times:
+            raise ProfilerUnavailable(
+                "torch.profiler recorded no CUDA kernel (CUPTI tracing is "
+                "not available to this process); time the kernels with "
+                "graph_time_s")
+        hit = [v for k, v in times.items() if match in k]
+        if not hit:
+            raise RuntimeError(f"no CUDA kernel named like {match!r} ran; "
+                               f"kernels seen: {sorted(times)}")
+        return sum(hit)
+    _require_cuda()
+    _warm(fn, warmup)
+    pairs = []
+    for _ in range(n):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        pairs.append((t0, t1))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / n / 1e3
+
+
+#: Replays of the graph that ``graph_time_s`` times.
+_REPLAYS = 3
+
+
+def graph_time_s(fn: Callable[[], object], n: int = 20,
+                 warmup: int = 3) -> float:
+    """Mean on-device seconds of ``fn``'s kernels alone, without the
+    profiler: after ``warmup`` calls, ``n`` calls are captured back to
+    back in one CUDA graph (a wrapper counts ``warmup + n`` launches, as
+    for :func:`device_time_s`), and CUDA events time each of three
+    replays. The replays and their events are queued behind a spin
+    kernel, so the host's graph submission stays out of the span (it is
+    checked that the device was still spinning when the last was queued;
+    the spin grows until it is); the graph's own launch is shared by the
+    ``n`` calls. ``fn`` must be capturable: kernels on the current
+    stream, no host synchronization."""
+    _require_cuda()
+    _warm(fn, warmup)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    cycles = 1 << 20
+    while True:
+        torch.cuda._sleep(cycles)
+        spun = torch.cuda.Event()
+        spun.record()
+        pairs = []
+        for _ in range(_REPLAYS):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            graph.replay()
+            t1.record()
+            pairs.append((t0, t1))
+        queued_in_time = not spun.query()
+        torch.cuda.synchronize()
+        if queued_in_time:
+            return (sum(a.elapsed_time(b) for a, b in pairs)
+                    / (_REPLAYS * n) / 1e3)
+        if cycles >= 1 << 30:
+            raise RuntimeError("graph_time_s: the host could not queue "
+                               f"{_REPLAYS} replays within a {cycles}-cycle "
+                               "spin")
+        cycles <<= 2

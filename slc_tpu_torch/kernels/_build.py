@@ -42,19 +42,27 @@ _SIGNATURES = {
     # phase_period, use_mod, min_mod_sq, tri (host float[14]), stream
     "slc_grayphase": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _f,
                       _i, _f, _vp, _vp],
-    # frame, strip_w, strip_b, h, w, window, subpixel, stream
-    "slc_stripe": [_vp, _vp, _vp, _i, _i, _i, _i, _vp],
+    # frame, strip_w, strip_b, h, w, window, subpixel, fbits, stream
+    "slc_stripe": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
     # frame, prev_sw, prev_sb, prev_pu, pu, sw, sb, z, x, y, h, w, window,
-    # subpixel, scale_gradient, robust, tri, stream
+    # subpixel, fbits, scale_gradient, robust, tri, stream
     "slc_dynamic_step": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                         _i, _i, _i, _i, _i, _i, _vp, _vp],
+                         _i, _i, _i, _i, _i, _i, _i, _vp, _vp],
     # frame, prev_sw, prev_sb, prev_pu, pu, sw, sb, z, x, y, scratch,
-    # wu, wv, h, w, window, subpixel, scale_gradient, robust, period,
-    # win_u, win_v, amp_floor, gate_on, gate_thresh, gate_band, tri,
-    # stream
+    # wu, wv, h, w, window, subpixel, fbits, scale_gradient, robust,
+    # period, win_u, win_v, amp_floor, gate_on, gate_thresh, gate_band,
+    # ablate, tri, stream
     "slc_dynamic_step_lock": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                               _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
-                              _f, _i, _i, _f, _i, _f, _i, _vp, _vp],
+                              _i, _f, _i, _i, _f, _i, _f, _i, _i, _vp,
+                              _vp],
+    # frame, pred, pu, z, x, y, scratch, wu, wv, h, w, period, win_u,
+    # win_v, amp_floor, gate_on, gate_thresh, gate_band, tri, stream
+    "slc_phase_lock": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i,
+                       _f, _i, _i, _f, _i, _f, _i, _vp, _vp],
+    # img, out (n_out maps), n_out, h, w, halo, stream
+    "slc_halo_block_floor_u8": [_vp, _vp, _i, _i, _i, _i, _vp],
+    "slc_halo_block_floor_f32": [_vp, _vp, _i, _i, _i, _i, _vp],
     # images, x, y, z, pu, h, w, nfreq, n, periods, scales, spine (host
     # float arrays), coarse, extent, ck, sk (host), two_over_n, use_mod,
     # min_mod, tri, stream

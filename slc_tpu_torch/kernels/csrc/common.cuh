@@ -82,13 +82,25 @@ __device__ __forceinline__ float parabola(int vm, int v0, int vp) {
   return fminf(fmaxf(frac, -0.5f), 0.5f);
 }
 
+// Fast sub-pixel mode (slc_tpu/pallas/mathx.py:279-290, :332-376): a
+// fraction quantized to fbits bits, q = clip(S/2 + 1/2 - S*frac, 0, S-1)
+// truncated, read back as (S/2 - q)/S, S = 2^fbits. S*frac is exact, so
+// a contracted FMA rounds as the plain version does.
+__device__ __forceinline__ float quantize_frac(float frac, int fbits) {
+  const float s = (float)(1 << fbits), half = 0.5f * s;
+  const float q = truncf(fminf(fmaxf(half + 0.5f - s * frac, 0.0f), s - 1.0f));
+  return (half - q) / s;
+}
+
 // Offsets of the max and min of vs_row[c + i] over i in [-r, r), starting
 // from the center and updating on strict inequality: the center wins a
 // tie, otherwise the leftmost offset (CCalculation.cpp:828-891). Reads
-// vs_row[c - r - 1 .. c + r] when subpixel is set.
+// vs_row[c - r - 1 .. c + r] when subpixel is set. fbits > 0 quantizes
+// the fraction of a winner other than the center; a center tie keeps the
+// exact fraction, as the TPU kernels do.
 __device__ __forceinline__ void extrema_px(const int* vs_row, int c, int r,
-                                           bool subpixel, float* sw,
-                                           float* sb) {
+                                           bool subpixel, int fbits,
+                                           float* sw, float* sb) {
   const int v0 = vs_row[c];
   int bmax = v0, bmin = v0, imax = 0, imin = 0;
   for (int i = -r; i < r; ++i) {
@@ -98,8 +110,14 @@ __device__ __forceinline__ void extrema_px(const int* vs_row, int c, int r,
   }
   float fmax = (float)imax, fmin = (float)imin;
   if (subpixel) {
-    fmax += parabola(vs_row[c + imax - 1], bmax, vs_row[c + imax + 1]);
-    fmin += parabola(vs_row[c + imin - 1], bmin, vs_row[c + imin + 1]);
+    float pmax = parabola(vs_row[c + imax - 1], bmax, vs_row[c + imax + 1]);
+    float pmin = parabola(vs_row[c + imin - 1], bmin, vs_row[c + imin + 1]);
+    if (fbits > 0) {
+      if (imax != 0) pmax = quantize_frac(pmax, fbits);
+      if (imin != 0) pmin = quantize_frac(pmin, fbits);
+    }
+    fmax += pmax;
+    fmin += pmin;
   }
   *sw = fmax;
   *sb = fmin;

@@ -25,6 +25,13 @@
 //
 // The carrier gate spans all columns of a band, so no tile decides it
 // alone; that is why finish and snap are separate launches.
+//
+// The launches after track are also the standalone lock, slc_phase_lock,
+// which replaces slc_tpu/pallas/phaselock.py:216 phase_lock_pallas: the
+// same correction and re-triangulation on a given prediction P (u8 frame
+// and f32 P in, P, z, x, y out: 21 B/px). With the open-loop step before
+// it, it is the two-kernel form of the locked step, equal to the fused
+// form bit for bit.
 #include "common.cuh"
 
 namespace {
@@ -48,8 +55,8 @@ __global__ void track_kernel(const uint8_t* __restrict__ frame,
                              float* __restrict__ sw_out,
                              float* __restrict__ sb_out, float* z_out,
                              float* x_out, float* y_out, int h, int w,
-                             int r, int subpixel, int scale_gradient,
-                             int robust, Tri t) {
+                             int r, int subpixel, int fbits,
+                             int scale_gradient, int robust, Tri t) {
   extern __shared__ int smem[];
   const int x0 = blockIdx.x * kTrackW, y0 = blockIdx.y * kTrackH;
   const int eh = kTrackH + 2, ew = kTrackW + 2;   // strips + 1 px halo
@@ -67,8 +74,8 @@ __global__ void track_kernel(const uint8_t* __restrict__ frame,
     if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
       float sw = 0.0f, sb = 0.0f;
       if (gy >= r && gy < h - r && gx >= r && gx < w - r)
-        extrema_px(vs + er * ncols, ec + r + 1, r, subpixel != 0, &sw,
-                   &sb);
+        extrema_px(vs + er * ncols, ec + r + 1, r, subpixel != 0, fbits,
+                   &sw, &sb);
       const size_t gi = (size_t)gy * w + gx;
       // deltaP select (CCalculation.cpp:595-646; robust mean where the
       // two stripe families agree, slc_tpu/ops/stripe.py:161-183).
@@ -309,8 +316,10 @@ __global__ void finish_kernel(const uint8_t* __restrict__ frame,
 
 // Stage C's gate and stage D: P = P' + correction where the band's
 // amplitude-gated mean gradient is within the threshold, then
-// triangulate. ``pu`` holds P' on entry and P on exit.
-__global__ void snap_kernel(float* __restrict__ pu,
+// triangulate. ``pu_in`` holds P', ``pu_out`` gets P; the locked step
+// passes one buffer for both (each thread reads, then writes, its own
+// pixel), the standalone lock a fresh output.
+__global__ void snap_kernel(const float* pu_in, float* pu_out,
                             const float* __restrict__ corr,
                             const float* __restrict__ partial, int ntiles,
                             int gate_on, float thresh,
@@ -339,10 +348,10 @@ __global__ void snap_kernel(float* __restrict__ pu,
     const int gy = y0 + i;
     if (gy >= h || gx >= w) continue;
     const size_t gi = (size_t)gy * w + gx;
-    const float p = pu[gi] + (gate ? corr[gi] : 0.0f);
+    const float p = pu_in[gi] + (gate ? corr[gi] : 0.0f);
     float z, x, y;
     triangulate_px(t, p, gy, gx, &z, &x, &y);
-    pu[gi] = p;
+    pu_out[gi] = p;
     z_out[gi] = z;
     x_out[gi] = x;
     y_out[gi] = y;
@@ -367,8 +376,8 @@ cudaError_t launch_track(const uint8_t* frame, const float* prev_sw,
                          const float* prev_sb, const float* prev_pu,
                          float* pu, float* sw, float* sb, float* z,
                          float* x, float* y, int h, int w, int window,
-                         int subpixel, int scale_gradient, int robust,
-                         const Tri& t, cudaStream_t stream) {
+                         int subpixel, int fbits, int scale_gradient,
+                         int robust, const Tri& t, cudaStream_t stream) {
   const int r = window / 2;
   const dim3 grid((w + kTrackW - 1) / kTrackW, (h + kTrackH - 1) / kTrackH);
   const size_t smem = track_smem(r);
@@ -376,40 +385,29 @@ cudaError_t launch_track(const uint8_t* frame, const float* prev_sw,
   if (err != cudaSuccess) return err;
   track_kernel<<<grid, kThreads, smem, stream>>>(
       frame, prev_sw, prev_sb, prev_pu, pu, sw, sb, z, x, y, h, w, r,
-      subpixel, scale_gradient, robust, t);
+      subpixel, fbits, scale_gradient, robust, t);
   return cudaGetLastError();
 }
 
 int n_bands(int h, int band) { return (h + band - 1) / band; }
 int n_tiles(int w) { return (w + kFinW - 1) / kFinW; }
 
-}  // namespace
+// Where the lock's launches stop: all of them, or (profiling only) after
+// the DC passes or after the C/S passes.
+enum LockStop { kLockAll = 0, kLockAfterDc = 2, kLockAfterCorr = 3 };
 
-extern "C" int slc_dynamic_step(const uint8_t* frame, const float* prev_sw,
-                                const float* prev_sb, const float* prev_pu,
-                                float* pu, float* sw, float* sb, float* z,
-                                float* x, float* y, int h, int w, int window,
-                                int subpixel, int scale_gradient, int robust,
-                                const float* tri, cudaStream_t stream) {
-  return (int)launch_track(frame, prev_sw, prev_sb, prev_pu, pu, sw, sb, z,
-                           x, y, h, w, window, subpixel, scale_gradient,
-                           robust, tri_from_host(tri), stream);
-}
-
-// Floats of scratch the locked step needs: DC, two row-pass buffers (the
-// first reused for the correction map), C, S, and the band partials.
-extern "C" long slc_dynamic_step_lock_scratch(int h, int w, int band) {
-  return 5L * h * w + 2L * n_bands(h, band) * n_tiles(w);
-}
-
-extern "C" int slc_dynamic_step_lock(
-    const uint8_t* frame, const float* prev_sw, const float* prev_sb,
-    const float* prev_pu, float* pu, float* sw, float* sb, float* z,
-    float* x, float* y, float* scratch, const float* wu, const float* wv,
-    int h, int w, int window, int subpixel, int scale_gradient, int robust,
-    float period, int win_u, int win_v, float amp_floor, int gate_on,
-    float gate_thresh, int band, const float* tri, cudaStream_t stream) {
-  const Tri t = tri_from_host(tri);
+// Launches B-D of the locked step: the lock-in correction of the
+// prediction ``pred`` and the re-triangulation, P into ``pu_out`` (which
+// may be ``pred`` itself). Shared by the locked step, which gives it the
+// P' of launch A, and by the standalone lock, which gives it the
+// caller's prediction; so the two cannot drift apart.
+cudaError_t launch_lock(const uint8_t* frame, const float* pred,
+                        float* pu_out, float* z, float* x, float* y,
+                        float* scratch, const float* wu, const float* wv,
+                        int h, int w, float period, int win_u, int win_v,
+                        float amp_floor, int gate_on, float gate_thresh,
+                        int band, LockStop stop, const Tri& t,
+                        cudaStream_t stream) {
   const size_t npx = (size_t)h * w;
   float* dc = scratch;
   float* ta = scratch + npx;       // row pass; later the correction map
@@ -421,49 +419,109 @@ extern "C" int slc_dynamic_step_lock(
   const float two_over_t = (float)(2.0 / (double)period);
   const float phase_scale = (float)(2.0 * kPi / (double)period);
   const float p_scale = (float)((double)period / (2.0 * kPi));
-
-  // A: track and integrate; P' lands in ``pu``.
-  cudaError_t err = launch_track(frame, prev_sw, prev_sb, prev_pu, pu, sw,
-                                 sb, nullptr, nullptr, nullptr, h, w,
-                                 window, subpixel, scale_gradient, robust,
-                                 t, stream);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
 
   // B: DC = triangle(frame) / weight.
   const size_t smem_r0 = sizeof(float) * 2 * w;
   if ((err = fit_smem(row_tri_kernel<0>, smem_r0)) != cudaSuccess)
-    return (int)err;
+    return err;
   row_tri_kernel<0><<<h, kThreads, smem_r0, stream>>>(
       frame, nullptr, nullptr, 0.0f, ta, nullptr, w, ru);
   const dim3 cgrid((w + kColW - 1) / kColW, (h + kColH - 1) / kColH);
   const dim3 cblock(kColW, 8);
   const size_t smem_c0 = sizeof(float) * kColW * (kColH + 4 * rv + kColH + 2 * rv);
   if ((err = fit_smem(col_tri_kernel<0>, smem_c0)) != cudaSuccess)
-    return (int)err;
+    return err;
   col_tri_kernel<0><<<cgrid, cblock, smem_c0, stream>>>(
       ta, nullptr, dc, nullptr, wu, wv, h, w, rv);
+  if (stop == kLockAfterDc) return cudaGetLastError();
 
-  // B + C: C and S = triangle(iac * cos, iac * sin of 2*pi*P'/T).
+  // B + C: C and S = triangle(iac * cos, iac * sin of 2*pi*pred/T).
   const size_t smem_r1 = sizeof(float) * 4 * w;
   if ((err = fit_smem(row_tri_kernel<1>, smem_r1)) != cudaSuccess)
-    return (int)err;
+    return err;
   row_tri_kernel<1><<<h, kThreads, smem_r1, stream>>>(
-      frame, dc, pu, two_over_t, ta, tb, w, ru);
+      frame, dc, pred, two_over_t, ta, tb, w, ru);
   const size_t smem_c1 = 2 * smem_c0;
   if ((err = fit_smem(col_tri_kernel<1>, smem_c1)) != cudaSuccess)
-    return (int)err;
+    return err;
   col_tri_kernel<1><<<cgrid, cblock, smem_c1, stream>>>(
       ta, tb, cc, ss, wu, wv, h, w, rv);
+  if (stop == kLockAfterCorr) return cudaGetLastError();
 
   // C: correction map and gate partials; then gate, snap, triangulate.
   const dim3 fgrid(n_tiles(w), n_bands(h, band));
   const dim3 fblock(kFinW, kThreads / kFinW);
   float* corr = ta;
   finish_kernel<<<fgrid, fblock, 0, stream>>>(
-      frame, dc, pu, cc, ss, wu, wv, corr, partial, h, w, band,
+      frame, dc, pred, cc, ss, wu, wv, corr, partial, h, w, band,
       phase_scale, p_scale, amp_floor);
   snap_kernel<<<fgrid, fblock, 0, stream>>>(
-      pu, corr, partial, n_tiles(w), gate_on, gate_thresh, z, x, y, h, w,
-      band, t);
-  return (int)cudaGetLastError();
+      pred, pu_out, corr, partial, n_tiles(w), gate_on, gate_thresh, z, x,
+      y, h, w, band, t);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int slc_dynamic_step(const uint8_t* frame, const float* prev_sw,
+                                const float* prev_sb, const float* prev_pu,
+                                float* pu, float* sw, float* sb, float* z,
+                                float* x, float* y, int h, int w, int window,
+                                int subpixel, int fbits, int scale_gradient,
+                                int robust, const float* tri,
+                                cudaStream_t stream) {
+  return (int)launch_track(frame, prev_sw, prev_sb, prev_pu, pu, sw, sb, z,
+                           x, y, h, w, window, subpixel, fbits,
+                           scale_gradient, robust, tri_from_host(tri),
+                           stream);
+}
+
+// Floats of scratch the locked step and the standalone lock need: DC, two
+// row-pass buffers (the first reused for the correction map), C, S, and
+// the band partials.
+extern "C" long slc_dynamic_step_lock_scratch(int h, int w, int band) {
+  return 5L * h * w + 2L * n_bands(h, band) * n_tiles(w);
+}
+
+// ``ablate`` (profiling only; the outputs are then garbage): 0 runs every
+// launch, 1 stops after launch A (track), 2 after the DC passes, 3 after
+// the C/S passes, as slc_tpu/pallas/dynamic_lock.py:316-319 truncates its
+// kernel.
+extern "C" int slc_dynamic_step_lock(
+    const uint8_t* frame, const float* prev_sw, const float* prev_sb,
+    const float* prev_pu, float* pu, float* sw, float* sb, float* z,
+    float* x, float* y, float* scratch, const float* wu, const float* wv,
+    int h, int w, int window, int subpixel, int fbits, int scale_gradient,
+    int robust, float period, int win_u, int win_v, float amp_floor,
+    int gate_on, float gate_thresh, int band, int ablate, const float* tri,
+    cudaStream_t stream) {
+  const Tri t = tri_from_host(tri);
+  // A: track and integrate; P' lands in ``pu``.
+  cudaError_t err = launch_track(frame, prev_sw, prev_sb, prev_pu, pu, sw,
+                                 sb, nullptr, nullptr, nullptr, h, w,
+                                 window, subpixel, fbits, scale_gradient,
+                                 robust, t, stream);
+  if (err != cudaSuccess || ablate == 1) return (int)err;
+  const LockStop stop = ablate == 2 ? kLockAfterDc
+                        : ablate == 3 ? kLockAfterCorr : kLockAll;
+  return (int)launch_lock(frame, pu, pu, z, x, y, scratch, wu, wv, h, w,
+                          period, win_u, win_v, amp_floor, gate_on,
+                          gate_thresh, band, stop, t, stream);
+}
+
+// The standalone lock (replaces slc_tpu/pallas/phaselock.py:216
+// phase_lock_pallas): launches B-D on the caller's prediction ``pred``,
+// which is only read; P, z, x, y go to fresh outputs.
+extern "C" int slc_phase_lock(const uint8_t* frame, const float* pred,
+                              float* pu, float* z, float* x, float* y,
+                              float* scratch, const float* wu,
+                              const float* wv, int h, int w, float period,
+                              int win_u, int win_v, float amp_floor,
+                              int gate_on, float gate_thresh, int band,
+                              const float* tri, cudaStream_t stream) {
+  return (int)launch_lock(frame, pred, pu, z, x, y, scratch, wu, wv, h, w,
+                          period, win_u, win_v, amp_floor, gate_on,
+                          gate_thresh, band, kLockAll, tri_from_host(tri),
+                          stream);
 }

@@ -16,6 +16,11 @@ DC and then for the quadrature products, a finish pass that writes the
 correction and per-band gate partials, and a snap pass that reduces each
 band's partials in a fixed order, gates, corrects and triangulates.
 
+``frac_bits`` > 0 is the fast sub-pixel mode of the stripe tracking
+(kernels/stripe.py): the same winners, fractions quantized, in the
+kernels and the plain versions alike. The locked step's fraction bits
+follow the lanes of slc_tpu's locked kernel, width + 2*win_u.
+
 Precondition of the kernels: the carried strips are zero within
 window//2 px of the image border, as every tracker state is (the stripe
 regression masks its border). The kernels pad the 3x3 mean and the
@@ -38,11 +43,12 @@ import torch
 
 from slc_tpu_torch.calib import TriangulationTables
 from slc_tpu_torch.kernels import _build
-from slc_tpu_torch.kernels.stripe import check_window, stripe_regression_ref
+from slc_tpu_torch.kernels.stripe import check_window, fast_frac_bits
 from slc_tpu_torch.ops.demod import (GATE_BAND, stripe_phase_correction,
                                      tri_weights_1d)
 from slc_tpu_torch.ops.filters import box_blur_3x3
-from slc_tpu_torch.ops.stripe import select_delta_p
+from slc_tpu_torch.ops.stripe import (box_sum_vertical, select_delta_p,
+                                      windowed_extrema)
 from slc_tpu_torch.ops.triangulate import triangulate_xyz
 
 #: (proj_u, strip_w, strip_b, z, x, y), each (H, W) float32.
@@ -50,10 +56,11 @@ StepMaps = Tuple[torch.Tensor, ...]
 
 
 def _track_ref(frame, prev_sw, prev_sb, prev_pu, window, subpixel,
-               scale_gradient, robust):
+               scale_gradient, robust, fbits):
     """Stripe track -> deltaP select -> 3x3 mean -> gradient scale ->
     P integration (slc_tpu/dynamic.py:183-193)."""
-    sw, sb = stripe_regression_ref(frame, window, subpixel)
+    sw, sb = windowed_extrema(box_sum_vertical(frame, window), window,
+                              subpixel, fbits)
     dp = box_blur_3x3(select_delta_p(prev_sw, prev_sb, sw, sb,
                                      robust=robust))
     if scale_gradient:
@@ -70,10 +77,10 @@ def dynamic_step_open_ref(frame: torch.Tensor, prev_sw: torch.Tensor,
                           robust: bool = True, fov_min: float = 10.0,
                           fov_max: float = 100.0,
                           frac_bits: int = 0) -> StepMaps:
-    """Plain PyTorch open-loop step. ``frac_bits`` is ignored: the plain
-    path is always exact, as slc_tpu's XLA path is."""
+    """Plain PyTorch open-loop step."""
+    fbits = fast_frac_bits(frac_bits, window, frame.shape[-1], subpixel)
     pu, sw, sb = _track_ref(frame, prev_sw, prev_sb, prev_pu, window,
-                            subpixel, scale_gradient, robust)
+                            subpixel, scale_gradient, robust, fbits)
     x, y, z = triangulate_xyz(pu, tables, fov_min, fov_max)
     return pu, sw, sb, z, x, y
 
@@ -90,8 +97,10 @@ def dynamic_step_lock_ref(frame: torch.Tensor, prev_sw: torch.Tensor,
                           frac_bits: int = 0) -> StepMaps:
     """Plain PyTorch locked step: the open-loop integration, then the
     lock-in correction (slc_tpu/dynamic.py:194-198)."""
+    fbits = fast_frac_bits(frac_bits, window, frame.shape[-1] + 2 * win_u,
+                           subpixel)
     pu, sw, sb = _track_ref(frame, prev_sw, prev_sb, prev_pu, window,
-                            subpixel, scale_gradient, robust)
+                            subpixel, scale_gradient, robust, fbits)
     dpl, _ = stripe_phase_correction(frame, pu, period, win_u, win_v,
                                      amp_floor=amp_floor,
                                      max_carrier_gradient=max_carrier_gradient)
@@ -103,9 +112,8 @@ def dynamic_step_lock_ref(frame: torch.Tensor, prev_sw: torch.Tensor,
 def _check_inputs(frame, prev_sw, prev_sb, prev_pu, tables, window,
                   frac_bits):
     check_window(window)
-    if frac_bits:
-        raise ValueError("frac_bits > 0 (fast sub-pixel) is not ported: "
-                         "the kernels compute the exact fraction only")
+    if frac_bits < 0:
+        raise ValueError(f"frac_bits must be >= 0, got {frac_bits}")
     if frame.ndim != 2 or frame.numel() == 0:
         raise ValueError(f"frame: expected a non-empty (H, W) tensor, got "
                          f"{tuple(frame.shape)}")
@@ -134,13 +142,14 @@ def dynamic_step_open_cuda(frame: torch.Tensor, prev_sw: torch.Tensor,
     and float32 carried maps, contiguous (H, W) on one CUDA device."""
     dev, h, w = _check_inputs(frame, prev_sw, prev_sb, prev_pu, tables,
                               window, frac_bits)
+    fbits = fast_frac_bits(frac_bits, window, w, subpixel)
     pu, sw, sb, z, x, y = out = _empty_maps(h, w, dev)
     tri = _build.tri_array(tables.coeffs, fov_min, fov_max)
     err = _build.lib().slc_dynamic_step(
         frame.data_ptr(), prev_sw.data_ptr(), prev_sb.data_ptr(),
         prev_pu.data_ptr(), pu.data_ptr(), sw.data_ptr(), sb.data_ptr(),
         z.data_ptr(), x.data_ptr(), y.data_ptr(), h, w, window,
-        int(subpixel), int(scale_gradient), int(robust), tri,
+        int(subpixel), fbits, int(scale_gradient), int(robust), tri,
         _build.stream_of(dev))
     dynamic_step_open_cuda.launches += 1
     _build.check(err, "slc_dynamic_step")
@@ -159,6 +168,37 @@ def _tri_weights(h: int, w: int, win_u: int, win_v: int, device
             torch.from_numpy(tri_weights_1d(h, win_v)).to(device))
 
 
+def check_lock_args(period: float, win_u: int, win_v: int) -> None:
+    """The lock parameters the kernels take: odd windows of 3..63 px and
+    a positive finite period."""
+    for name, win in (("win_u", win_u), ("win_v", win_v)):
+        if win % 2 == 0 or not 3 <= win <= 63:
+            raise ValueError(f"{name} must be odd in [3, 63], got {win}")
+    if not (period > 0 and math.isfinite(period)):
+        raise ValueError(f"period must be positive and finite, got "
+                         f"{period}")
+
+
+def lock_buffers(h: int, w: int, win_u: int, win_v: int, dev):
+    """The lock launches' device scratch and triangle weights."""
+    scratch = torch.empty(
+        _build.lib().slc_dynamic_step_lock_scratch(h, w, GATE_BAND),
+        dtype=torch.float32, device=dev)
+    return (scratch,) + _tri_weights(h, w, win_u, win_v, dev)
+
+
+def gate_args(max_carrier_gradient: float) -> Tuple[int, float]:
+    """(gate_on, threshold): 0 or inf turns the gate off, as in
+    slc_tpu/ops/demod.py:204 (not the inverted reading of the TPU
+    kernels)."""
+    on = bool(max_carrier_gradient) and math.isfinite(max_carrier_gradient)
+    return int(on), float(max_carrier_gradient) if on else 0.0
+
+
+#: ``ablate`` of the locked step: where its launches stop.
+_ABLATE = {"": 0, "track": 1, "dc": 2, "corr": 3}
+
+
 def dynamic_step_lock_cuda(frame: torch.Tensor, prev_sw: torch.Tensor,
                            prev_sb: torch.Tensor, prev_pu: torch.Tensor,
                            tables: TriangulationTables, *, window: int = 21,
@@ -168,37 +208,34 @@ def dynamic_step_lock_cuda(frame: torch.Tensor, prev_sw: torch.Tensor,
                            period: float = 12.0, win_u: int = 21,
                            win_v: int = 9, amp_floor: float = 8.0,
                            max_carrier_gradient: float = 2e-3,
-                           frac_bits: int = 0) -> StepMaps:
+                           frac_bits: int = 0,
+                           ablate: str = "") -> StepMaps:
     """The hand-written locked step (seven launches, see the module
-    note). ``max_carrier_gradient`` 0 or inf turns the gate off, as in
-    slc_tpu/ops/demod.py:204 (not the inverted reading of the TPU
-    kernels). Gate bands are GATE_BAND rows, aligned to row 0."""
+    note). ``max_carrier_gradient`` 0 or inf turns the gate off (see
+    :func:`gate_args`). Gate bands are GATE_BAND rows, aligned to row 0.
+
+    ``ablate`` (profiling only; the outputs are then garbage): "track",
+    "dc" or "corr" stops after the track launch, the DC passes or the
+    C/S passes, so that device timing splits the step by stage
+    (slc_tpu/pallas/dynamic_lock.py:316-319)."""
+    if ablate not in _ABLATE:
+        raise ValueError(f"ablate must be one of {sorted(_ABLATE)}, got "
+                         f"{ablate!r}")
     dev, h, w = _check_inputs(frame, prev_sw, prev_sb, prev_pu, tables,
                               window, frac_bits)
-    for name, win in (("win_u", win_u), ("win_v", win_v)):
-        if win % 2 == 0 or not 3 <= win <= 63:
-            raise ValueError(f"{name} must be odd in [3, 63], got {win}")
-    if not (period > 0 and math.isfinite(period)):
-        raise ValueError(f"period must be positive and finite, got "
-                         f"{period}")
-    gate_on = bool(max_carrier_gradient) and math.isfinite(
-        max_carrier_gradient)
-    lib = _build.lib()
+    check_lock_args(period, win_u, win_v)
+    fbits = fast_frac_bits(frac_bits, window, w + 2 * win_u, subpixel)
     pu, sw, sb, z, x, y = out = _empty_maps(h, w, dev)
-    scratch = torch.empty(
-        lib.slc_dynamic_step_lock_scratch(h, w, GATE_BAND),
-        dtype=torch.float32, device=dev)
-    wu, wv = _tri_weights(h, w, win_u, win_v, dev)
+    scratch, wu, wv = lock_buffers(h, w, win_u, win_v, dev)
     tri = _build.tri_array(tables.coeffs, fov_min, fov_max)
-    err = lib.slc_dynamic_step_lock(
+    err = _build.lib().slc_dynamic_step_lock(
         frame.data_ptr(), prev_sw.data_ptr(), prev_sb.data_ptr(),
         prev_pu.data_ptr(), pu.data_ptr(), sw.data_ptr(), sb.data_ptr(),
         z.data_ptr(), x.data_ptr(), y.data_ptr(), scratch.data_ptr(),
-        wu.data_ptr(), wv.data_ptr(), h, w, window, int(subpixel),
+        wu.data_ptr(), wv.data_ptr(), h, w, window, int(subpixel), fbits,
         int(scale_gradient), int(robust), float(period), win_u, win_v,
-        float(amp_floor), int(gate_on),
-        float(max_carrier_gradient) if gate_on else 0.0, GATE_BAND, tri,
-        _build.stream_of(dev))
+        float(amp_floor), *gate_args(max_carrier_gradient), GATE_BAND,
+        _ABLATE[ablate], tri, _build.stream_of(dev))
     dynamic_step_lock_cuda.launches += 1
     _build.check(err, "slc_dynamic_step_lock")
     return out

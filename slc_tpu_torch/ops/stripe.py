@@ -46,8 +46,18 @@ def box_sum_vertical(frame: torch.Tensor, window: int) -> torch.Tensor:
                        torch.zeros_like(box))
 
 
+def quantize_frac(frac: torch.Tensor, fbits: int) -> torch.Tensor:
+    """The fast sub-pixel mode's fraction (slc_tpu/pallas/mathx.py:
+    332-376, read back at :428): q = trunc(clip(S/2 + 1/2 - S*frac, 0,
+    S-1)) with S = 2^fbits, returned as (S/2 - q)/S, a multiple of 1/S in
+    [-(S/2 - 1)/S, 1/2]."""
+    s = float(1 << fbits)
+    q = ((0.5 * s + 0.5) - s * frac).clamp(0.0, s - 1.0).trunc()
+    return (0.5 * s - q) / s
+
+
 def windowed_extrema(val_sum: torch.Tensor, window: int,
-                     subpixel: bool = False
+                     subpixel: bool = False, fbits: int = 0
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-pixel offsets of the max/min of val_sum over horizontal
     offsets [-r, r), reference scan semantics (CCalculation.cpp:
@@ -55,7 +65,10 @@ def windowed_extrema(val_sum: torch.Tensor, window: int,
 
     ``subpixel``: refine each extremum by a parabola through its two
     horizontal neighbors, offset += (v[-1]-v[+1]) / (2*(v[-1]-2v0+v[+1])),
-    clamped to +-0.5.
+    clamped to +-0.5. ``fbits`` > 0 (fast sub-pixel mode) quantizes the
+    fraction of every winner but the center to ``fbits`` bits
+    (:func:`quantize_frac`); a center tie keeps the exact fraction, as
+    slc_tpu's TPU kernels do.
 
     Returns (strip_w, strip_b): float32 offsets (bright, dark), zero
     outside the interior.
@@ -95,8 +108,11 @@ def windowed_extrema(val_sum: torch.Tensor, window: int,
         def refine(idx, v0, vm, vp):
             denom = vm - 2.0 * v0 + vp
             frac = torch.where(denom.abs() > 1e-6, 0.5 * (vm - vp) / denom,
-                               torch.zeros_like(denom))
-            return idx + frac.clamp(-0.5, 0.5)
+                               torch.zeros_like(denom)).clamp(-0.5, 0.5)
+            if fbits:
+                # The center never wins by an update: idx == 0 is a tie.
+                frac = torch.where(idx == 0, frac, quantize_frac(frac, fbits))
+            return idx + frac
         best_max_idx = refine(best_max_idx, best_max, max_vm, max_vp)
         best_min_idx = refine(best_min_idx, best_min, min_vm, min_vp)
 

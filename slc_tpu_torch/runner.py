@@ -76,7 +76,8 @@ def run_replay(dataset_root: str, calib: "Calibration | str",
                lock_window: Optional[int] = None,
                refine_period: bool = False,
                out_format: str = "xyz",
-               stream: bool = True) -> RunReport:
+               stream: bool = True,
+               frac_bits: int = 0) -> RunReport:
     """Run the reconstruction over a replay dataset on ``device``.
 
     ``mode`` is the frame-0 absolute decode: "gray" (the reference's
@@ -93,7 +94,10 @@ def run_replay(dataset_root: str, calib: "Calibration | str",
     from the frame-0 map). ``stream`` reads frames ahead on a thread and
     writes clouds from a background thread; ``stream=False`` is the
     strict read -> step -> write loop. Anchor groups (``aFrame{f}/``)
-    re-anchor the tracker when ``use_anchors`` is set. See
+    re-anchor the tracker when ``use_anchors`` is set. ``frac_bits`` > 0
+    is the fast sub-pixel mode of every tracker step (the stripe
+    fraction quantized to that many bits; tracker init and re-anchor
+    stay exact, as in slc_tpu). See
     slc_tpu/runner.py:64-118 for the rationale of each.
 
     Outputs: <out_dir>/iFrame.<ext>, <out_dir>/cFrame{N}.<ext> ("txt"
@@ -212,7 +216,7 @@ def run_replay(dataset_root: str, calib: "Calibration | str",
     def step(st, frame_dev):
         return dynamic_step(st, frame_dev, tables, cfg, scale_gradient,
                             subpixel, robust, phase_lock=lock_period,
-                            lock_win_u=lock_win)
+                            lock_win_u=lock_win, frac_bits=frac_bits)
 
     # --- dynamic loop (CalculateOther) -------------------------------
     ckpt_dir = os.path.join(out_dir, "ckpt")

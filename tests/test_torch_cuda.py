@@ -12,14 +12,16 @@ import numpy as np
 import pytest
 import torch
 
-from slc_tpu_torch import synth
+from slc_tpu_torch import devtime, synth
 from slc_tpu_torch.calib import build_tables, synthetic_calibration
 from slc_tpu_torch.config import HeterodyneConfig, SystemConfig
 from slc_tpu_torch.kernels import bilateral as kbil
 from slc_tpu_torch.kernels import dynamic_step as kstep
+from slc_tpu_torch.kernels import floors as kfl
 from slc_tpu_torch.kernels import grayphase as kgray
 from slc_tpu_torch.kernels import heterodyne as khet
 from slc_tpu_torch.kernels import mgsmooth as kmg
+from slc_tpu_torch.kernels import phaselock as kpl
 from slc_tpu_torch.kernels import stripe as kstripe
 from slc_tpu_torch.ops import unwrap_spatial as U
 
@@ -149,3 +151,116 @@ def test_mg_level_kernels(dev, shape):
            2e-6)
     _close([kmg.mg_up_cuda(e, r, wy, wx, dinv)],
            [kmg.mg_up_ref(e, r, wy, wx, dinv)], 2e-6)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_phase_lock_kernel(dev, shape):
+    """At the locked step's bars; the prediction is only read."""
+    cfg, calib, tables = _setup(*shape, dev)
+    frames, _, pu_gt = synth.render_dynamic_sequence(
+        calib, cfg, 2, stripe_period=12, noise_sigma=1.0)
+    pred = torch.from_numpy(pu_gt[1].astype(np.float32) + 1.3).to(dev)
+    pred[:, 40:48] = 0.0
+    keep = pred.clone()
+    f = torch.from_numpy(frames[1]).to(dev)
+    kw = dict(period=12.0, win_u=21, win_v=9, fov_min=cfg.fov_min,
+              fov_max=cfg.fov_max)
+    got = kpl.phase_lock_cuda(f, pred, tables, **kw)
+    assert torch.equal(pred, keep)
+    want = kpl.phase_lock_ref(f, pred, tables, **kw)
+    for i, bar in enumerate((2e-3, 4e-3, 4e-3, 4e-3)):
+        _close(got[i:i + 1], want[i:i + 1], bar)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("frac_bits", [0, 7])
+def test_two_kernel_locked_step_equals_fused(dev, shape, frac_bits):
+    """Open-loop step, then the standalone lock on its P: the same device
+    code as the fused locked step, so bit-identical."""
+    cfg, args = _step_args(shape, dev)
+    kw = dict(window=cfg.reco_window, fov_min=cfg.fov_min,
+              fov_max=cfg.fov_max, frac_bits=frac_bits)
+    lk = dict(period=12.0, win_u=21, win_v=9)
+    pu1, sw, sb = kstep.dynamic_step_open_cuda(*args, **kw)[:3]
+    pu, z, x, y = kpl.phase_lock_cuda(args[0], pu1, args[-1], **lk,
+                                      fov_min=cfg.fov_min,
+                                      fov_max=cfg.fov_max)
+    fused = kstep.dynamic_step_lock_cuda(*args, **kw, **lk)
+    for a, b in zip((pu, sw, sb, z, x, y), fused):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype,halo", [(torch.uint8, 10),
+                                        (torch.float32, 1)])
+@pytest.mark.parametrize("n_out", [1, 2])
+def test_floor_kernel(dev, shape, dtype, halo, n_out):
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy(rng.integers(0, 256, shape).astype(
+        np.uint8 if dtype == torch.uint8 else np.float32)).to(dev)
+    got = kfl.halo_block_floor_cuda(img, halo, n_out)
+    for g, e in zip(got, kfl.halo_block_floor_ref(img, halo, n_out)):
+        assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fast_subpixel_kernels(dev, shape):
+    """frac_bits=7: the same quantization as the plain versions."""
+    frame = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, shape, np.uint8)).to(dev)
+    _close(kstripe.stripe_regression_cuda(frame, 21, True, 7),
+           kstripe.stripe_regression_ref(frame, 21, True, 7), 1e-5)
+    cfg, args = _step_args(shape, dev)
+    kw = dict(window=cfg.reco_window, fov_min=cfg.fov_min,
+              fov_max=cfg.fov_max, frac_bits=7)
+    got = kstep.dynamic_step_open_cuda(*args, **kw)
+    want = kstep.dynamic_step_open_ref(*args, **kw)
+    for i, bar in enumerate((2e-4, 1e-5, 1e-5, 2e-3, 2e-4, 2e-4)):
+        _close(got[i:i + 1], want[i:i + 1], bar)
+    lk = dict(kw, period=12.0, win_u=21, win_v=9)
+    got = kstep.dynamic_step_lock_cuda(*args, **lk)
+    want = kstep.dynamic_step_lock_ref(*args, **lk)
+    for i, bar in enumerate((2e-3, 1e-5, 1e-5, 4e-3, 4e-3, 4e-3)):
+        _close(got[i:i + 1], want[i:i + 1], bar)
+
+
+def test_ablate_and_device_time(dev):
+    """Each ablated locked step runs; where the profiler records CUDA
+    kernels it sees the step's kernels by name, and their time alone is
+    below the call's, which also counts the wrapper's host time between
+    the launches."""
+    cfg, args = _step_args(SHAPES[0], dev)
+    kw = dict(window=cfg.reco_window, period=12.0, win_u=21, win_v=9)
+    for ab in ("track", "dc", "corr"):
+        kstep.dynamic_step_lock_cuda(*args, **kw, ablate=ab)
+    torch.cuda.synchronize()
+
+    def step():
+        return kstep.dynamic_step_lock_cuda(*args, **kw)
+    call = devtime.device_time_s(step, n=3)
+    if not devtime.profiler_sees_cuda():
+        return                      # CUPTI denied: the call time only
+    alone = devtime.device_time_s(step, n=3, match="")
+    assert 0 < alone < call
+    for name in ("track_kernel", "row_tri_kernel", "col_tri_kernel",
+                 "finish_kernel", "snap_kernel"):
+        assert 0 < devtime.device_time_s(step, n=3, match=name) < alone
+
+
+def test_graph_time(dev):
+    """The locked step's launches replayed as a CUDA graph: the warm-ups
+    and the captured calls each launch once, the device time is below the
+    call's, and the replays leave the caller's tensors as they were."""
+    cfg, args = _step_args(SHAPES[0], dev)
+    kw = dict(window=cfg.reco_window, period=12.0, win_u=21, win_v=9)
+    keep = [a.clone() for a in args[:4]]
+
+    def step():
+        return kstep.dynamic_step_lock_cuda(*args, **kw)
+    call = devtime.device_time_s(step, n=3)
+    kstep.dynamic_step_lock_cuda.launches = 0
+    alone = devtime.graph_time_s(step, n=3, warmup=2)
+    assert kstep.dynamic_step_lock_cuda.launches == 5
+    assert 0 < alone < call
+    for a, b in zip(args[:4], keep):
+        assert torch.equal(a, b)

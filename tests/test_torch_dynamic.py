@@ -133,6 +133,8 @@ def test_state_from_numpy_round_trip():
 
 
 def test_step_kernels_reject_fast_subpixel_and_cpu_tensors():
+    """The step kernels reject a negative ``frac_bits``, an unknown
+    ``ablate``, and CPU tensors in exact and fast sub-pixel mode."""
     from slc_tpu_torch.kernels.dynamic_step import (dynamic_step_lock_cuda,
                                                     dynamic_step_open_cuda)
     _, cfg, _, tt, frames, _, st = _setup(96, 160)
@@ -140,9 +142,12 @@ def test_step_kernels_reject_fast_subpixel_and_cpu_tensors():
             tt)
     for fn in (dynamic_step_open_cuda, dynamic_step_lock_cuda):
         with pytest.raises(ValueError, match="frac_bits"):
-            fn(*args, frac_bits=7)
-        with pytest.raises(ValueError, match="cuda"):
-            fn(*args)
+            fn(*args, frac_bits=-1)
+        for frac_bits in (0, 7):
+            with pytest.raises(ValueError, match="cuda"):
+                fn(*args, frac_bits=frac_bits)
+    with pytest.raises(ValueError, match="ablate"):
+        dynamic_step_lock_cuda(*args, ablate="snap")
 
 
 def test_run_sequence_matches_jax():
