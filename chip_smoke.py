@@ -32,7 +32,13 @@ Run from the root of a checkout. In order it:
    from its kernels-alone time:
    device ms, bytes per pixel, GB/s, % of the card's HBM peak and, for
    stripe and bilateral, % of the measured floor of their access
-   pattern;
+   pattern; and its bound, the larger of its bytes over the memory rate
+   and its plain version's operations (``devtime.count_ops``) over the
+   float32 rate (``bound_ms``, ``bound_by`` in the JSON line; null on a
+   card whose peaks devtime does not list). ``library_ms`` is the call
+   time of the one PyTorch call that computes the floors' function (a
+   broadcast add), checked equal to the plain version; null for the
+   other kernels, which no single call computes;
 5. runs ``python -m slc_tpu_torch run`` through ``main()``, each run with
    the launch counts set to 0 just before it and read just after, and
    each count required to equal the calls the runner makes:
@@ -436,8 +442,9 @@ def timing(inputs, card, use_profiler=True):
     }
     wrapper_of = {"floor_stripe": "halo_block_floor",
                   "floor_bilateral": "halo_block_floor"}
-    out = {}
+    out, ops = {}, {}
     for name, (kern, plain) in pairs.items():
+        ops[name] = devtime.count_ops(plain)
         # plain, kernel, kernel, plain: the mean of each side's two.
         wrapper = wrapper_of.get(name, name)
         t_p1 = dev_ms(plain)
@@ -456,6 +463,24 @@ def timing(inputs, card, use_profiler=True):
                  f"(profiler)")
         out[name] = ((t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2, k_dev, p_dev)
         log(line)
+
+    # The one PyTorch call that computes a kernel's function, where there
+    # is one: the floors' o_k = float(img) + k as one broadcast add.
+    library = {}
+    for name, img, n_out in (("floor_stripe", frame, 2),
+                             ("floor_bilateral", depth, 1)):
+        k = torch.arange(n_out, dtype=torch.float32,
+                         device=img.device)[:, None, None]
+        want = torch.stack(pairs[name][1]())
+        require(torch.equal(img + k, want),
+                f"{name}: the library call differs from the plain version")
+        call = dev_ms(lambda: img + k)
+        alone = alone_ms(lambda: img + k)
+        library[name] = call
+        log(f"time {name} library call (img + arange(n_out)[:, None, None]) "
+            f"at 1024x1280: call {call:.4f} ms, kernels alone {alone:.4f} ms "
+            f"(graph); the kernel's {out[name][0]:.4f} / {out[name][2]:.4f} "
+            f"ms")
 
     # Fast sub-pixel mode vs exact, and the two-kernel vs the fused
     # locked step, in turns (exact, fast, fast, exact), kernels alone.
@@ -481,32 +506,43 @@ def timing(inputs, card, use_profiler=True):
     fused = [f(fused_step, "dynamic_step_lock") for f in (dev_ms, alone_ms)]
     two = [f(two_kernel_step, "dynamic_step", "phase_lock")
            for f in (dev_ms, alone_ms)]
+    scratch = kstep.lock_buffers(cfg.cam_h, cfg.cam_w, inputs["win"], 9,
+                                 frame.device)[0]
+    log(f"lock scratch at 1024x1280: {scratch.numel() * 4} bytes (DC, the "
+        f"correction map and the gate partials)")
     log(f"time locked step at 1024x1280, call / kernels alone: fused "
         f"{fused[0]:.4f} / {fused[1]:.4f} ms, two-kernel (open-loop step "
         f"+ phase_lock) {two[0]:.4f} / {two[1]:.4f} ms")
 
     # The locked step by stage (cumulative: the launches stop after the
     # stage) and, where the profiler records kernels, by launch.
-    stages = {ab: alone_ms(lambda: kstep.dynamic_step_lock_cuda(
+    stages = {label: alone_ms(lambda: kstep.dynamic_step_lock_cuda(
         *args, **lk, ablate=ab), "dynamic_step_lock")
-        for ab in ("track", "dc", "corr", "")}
+        for ab, label in (("track", "track"), ("dc", "+ DC"),
+                          ("corr", "+ C/S and correction"), ("", "all"))}
     log("locked step stages, cumulative device ms (graph): "
-        + ", ".join(f"{k or 'all'} {v:.4f}" for k, v in stages.items()))
+        + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
     launches = {k: dev_ms(fused_step, "dynamic_step_lock", match=k)
-                for k in ("track_kernel", "row_tri_kernel",
-                          "col_tri_kernel", "finish_kernel", "snap_kernel")}
+                for k in ("track_kernel", "lock_dc_kernel",
+                          "lock_corr_kernel", "snap_kernel")}
     log("locked step launches, device ms per step (profiler): "
         + ", ".join(f"{k} {fmt_ms(v)}" for k, v in launches.items())
         + (f" (sum {sum(launches.values()):.4f} ms)"
            if None not in launches.values() else ""))
 
     # Rooflines: bytes the kernel must move over its kernels' device
-    # time.
+    # time; and each kernel's bound, the larger of its bytes over the
+    # memory rate and its plain version's operations (devtime.count_ops)
+    # over the float32 rate; none for a card whose peaks are not listed.
     px = cfg.cam_h * cfg.cam_w
-    peak = devtime.HBM_PEAK_GBPS.get(torch.cuda.get_device_name(0))
-    log(f"rooflines at 1024x1280 on {card}, HBM peak "
-        + (f"{peak:g} GB/s (published)" if peak else "not in the table"))
+    name0 = torch.cuda.get_device_name(0)
+    peak = devtime.HBM_PEAK_GBPS.get(name0)
+    f32 = devtime.F32_PEAK_TFLOPS.get(name0)
+    log(f"rooflines at 1024x1280 on {card}, published peaks: HBM "
+        + (f"{peak:g} GB/s" if peak else "not in the table") + ", float32 "
+        + (f"{f32:g} TFLOP/s" if f32 else "not in the table"))
     floor_of = {"stripe": "floor_stripe", "bilateral": "floor_bilateral"}
+    bounds = {}
     for name, (_, _, ms, _) in out.items():
         bpp = BYTES_PER_PX[name]
         gbs = bpp * px / (ms * 1e-3) / 1e9
@@ -518,8 +554,20 @@ def timing(inputs, card, use_profiler=True):
             fl = out[floor_of[name]][2]
             line += (f", {100.0 * fl / ms:.1f}% of the measured floor "
                      f"({fl:.4f} ms)")
+        line += f"; {ops[name] / px:.1f} operations/px"
+        if peak and f32:
+            by = {"bytes": 1e3 * bpp * px / (peak * 1e9),
+                  "operations": 1e3 * ops[name] / (f32 * 1e12)}
+            bound_by = max(by, key=by.get)
+            bounds[name] = (by[bound_by], bound_by)
+            line += (f"; bound {by[bound_by]:.4f} ms by {bound_by} (bytes "
+                     f"{by['bytes']:.4f} ms, operations "
+                     f"{by['operations']:.4f} ms)")
+        else:
+            bounds[name] = (None, None)
+            line += "; bound not known for this card"
         log(line)
-    return out, expect
+    return out, expect, bounds, library
 
 
 #: The kernel wrappers, each with its ``launches`` count.
@@ -776,7 +824,8 @@ def main(argv=None) -> int:
         parity(dev, errs, inputs)
         # The device-timing path, counted like a run.
         reset_counts()
-        times, expect = timing(inputs, card, not args.no_profiler)
+        times, expect, bounds, library = timing(inputs, card,
+                                                not args.no_profiler)
         got = read_counts()
         log(f"device-timing path launches {got}")
         require(got == expect, f"launch counts {got} != expected {expect}")
@@ -802,13 +851,19 @@ def main(argv=None) -> int:
         "phase_lock": ("dynamic_step.cu", "slc_tpu/pallas/phaselock.py:216"),
         "halo_block_floor": ("floors.cu", "slc_tpu/pallas/floors.py:25"),
     }
-    # The floor's line carries the stripe pattern's times.
+    # The floor's line carries the stripe pattern's times. No single
+    # PyTorch call computes the other kernels' functions: their
+    # library_ms is null.
     times["halo_block_floor"] = times["floor_stripe"]
+    bounds["halo_block_floor"] = bounds["floor_stripe"]
+    library["halo_block_floor"] = library["floor_stripe"]
     kernels = [{"name": name, "route": "cuda",
                 "source": f"slc_tpu_torch/kernels/csrc/{src}",
                 "replaces": rep, "launches": launches[name],
                 "max_abs_err": errs[name], "ms": times[name][0],
                 "plain_ms": times[name][1],
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                "library_ms": library.get(name),
                 "kernel_only_ms": times[name][2]}
                for name, (src, rep) in meta.items()]
     for k in kernels:

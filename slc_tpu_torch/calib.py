@@ -23,6 +23,17 @@ import numpy as np
 import torch
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without CUDA raises
+    instead of falling back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but CUDA is not available; "
+            f"pass device='cpu' (CLI: --device cpu) to run on the CPU")
+    return dev
+
+
 @dataclasses.dataclass(frozen=True)
 class Calibration:
     """Pinhole projector-camera calibration (slc_tpu/calib.py:28-76).
@@ -99,9 +110,12 @@ class TriangulationTables:
 
     @staticmethod
     def from_numpy(arrays: Dict[str, np.ndarray],
-                   device="cpu") -> "TriangulationTables":
+                   device="cuda") -> "TriangulationTables":
         """From the JAX package's table fields as numpy arrays (keys
-        a, b, c, d, fx, fy, cx, cy); values are kept as float32."""
+        a, b, c, d, fx, fy, cx, cy); values are kept as float32. On the
+        card unless ``device`` says otherwise (see
+        :func:`resolve_device`)."""
+        device = resolve_device(device)
         host = {k: np.asarray(arrays[k], np.float32)
                 for k in ("a", "b", "c", "d", "fx", "fy", "cx", "cy")}
         scal = tuple(float(host[k]) for k in ("a", "b", "fx", "fy",
@@ -126,10 +140,10 @@ def lin_coeffs(m: np.ndarray) -> Tuple[float, float, float]:
 
 
 def build_tables(calib: Calibration, cam_h: int, cam_w: int,
-                 device="cpu") -> TriangulationTables:
+                 device="cuda") -> TriangulationTables:
     """Host-side float64 construction of the triangulation tables, cast
-    to float32 for ``device`` (slc_tpu/calib.py:108-132, same
-    arithmetic, so bit-identical)."""
+    to float32 for ``device``, the card unless the caller asks for the
+    CPU (slc_tpu/calib.py:108-132, same arithmetic, so bit-identical)."""
     cam_k = np.asarray(calib.cam_k, np.float64)
     p = calib.pro_mat()
     fx, fy = cam_k[0, 0], cam_k[1, 1]

@@ -31,7 +31,9 @@ def save_state(path: str, state: TrackerState) -> str:
     return path
 
 
-def load_state(path: str, device="cpu") -> TrackerState:
+def load_state(path: str, device="cuda") -> TrackerState:
+    """The TrackerState saved at ``path``, on the card unless ``device``
+    says otherwise (a CUDA device without CUDA raises)."""
     if not path.endswith(".npz") and os.path.exists(path + ".npz"):
         path = path + ".npz"
     with np.load(path) as f:

@@ -14,8 +14,11 @@ The profiler needs CUPTI tracing, which a process may be denied, and a
 process's first profiling session may record no kernel while CUPTI
 starts. ``profiler_sees_cuda`` probes for it; ``device_time_s(match=
 ...)`` raises :class:`ProfilerUnavailable` when a session records no
-CUDA kernel at all. Without a CUDA device every function raises: a
-device time never falls back to a wall clock.
+CUDA kernel at all. Without a CUDA device every timing function raises:
+a device time never falls back to a wall clock.
+
+``count_ops`` counts the arithmetic of a call from the operators it
+dispatches, the operations side of a roofline bound; it runs anywhere.
 """
 
 from __future__ import annotations
@@ -24,11 +27,18 @@ import warnings
 from typing import Callable, Dict, Optional
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 #: Published device-memory bandwidth, GB/s, by the name ``nvidia-smi``
 #: and ``torch.cuda.get_device_name`` report (NVIDIA's data sheets). A
 #: card not listed has no "% of peak".
 HBM_PEAK_GBPS = {"NVIDIA H100 80GB HBM3": 3350.0}
+#: Published float32 rate outside the tensor cores, TFLOP/s, by the same
+#: names (NVIDIA's data sheets). A card not listed has no bound.
+F32_PEAK_TFLOPS = {"NVIDIA H100 80GB HBM3": 67.0}
+#: Scans, which carry no reduction tag: one operation per input element.
+_SCANS = ("cumsum", "cumprod", "cummax", "cummin", "logcumsumexp")
 
 
 class ProfilerUnavailable(RuntimeError):
@@ -117,6 +127,35 @@ def device_time_s(fn: Callable[[], object], n: int = 20,
         pairs.append((t0, t1))
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in pairs) / n / 1e3
+
+
+class _OpCounter(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func.overloadpacket.__name__
+        if torch.Tag.pointwise in func.tags and name != "clone":
+            self.ops += sum(t.numel() for t in tree_leaves(out)
+                            if isinstance(t, torch.Tensor))
+        elif torch.Tag.reduction in func.tags or name in _SCANS:
+            self.ops += args[0].numel()
+        return out
+
+
+def count_ops(fn: Callable[[], object]) -> int:
+    """The arithmetic operations of one call of ``fn``, counted from the
+    ATen operators it dispatches: each pointwise operator (arithmetic,
+    comparison, select, math function) counts one per output element,
+    each reduction or scan one per input element; views, copies, dtype
+    conversions, creation and indexing count none. Runs ``fn`` once, on
+    any device."""
+    counter = _OpCounter()
+    with counter:
+        fn()
+    return counter.ops
 
 
 #: Replays of the graph that ``graph_time_s`` times.

@@ -17,7 +17,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from slc_tpu_torch.calib import TriangulationTables
+from slc_tpu_torch.calib import TriangulationTables, resolve_device
 from slc_tpu_torch.config import SystemConfig
 from slc_tpu_torch.kernels.dynamic_step import (dynamic_step_lock,
                                                 dynamic_step_open)
@@ -38,9 +38,12 @@ class TrackerState:
 
     @staticmethod
     def from_numpy(arrays: Dict[str, np.ndarray],
-                   device="cpu") -> "TrackerState":
+                   device="cuda") -> "TrackerState":
         """From numpy arrays keyed by slc_tpu's checkpoint fields
-        (proj_u, strip_w, strip_b, z, frame_idx)."""
+        (proj_u, strip_w, strip_b, z, frame_idx), on the card unless
+        ``device`` says otherwise (a CUDA device without CUDA raises)."""
+        device = resolve_device(device)
+
         def f32(k):
             return torch.from_numpy(
                 np.asarray(arrays[k], np.float32).copy()).to(device)

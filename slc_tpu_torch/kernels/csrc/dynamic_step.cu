@@ -9,29 +9,45 @@
 // tile run as separate launches through device memory (about 1.3 MP of
 // f32 per map, which stays in the 50 MB L2):
 //
-//   track   stripe track on the tile + 1 px halo -> deltaP select -> 3x3
-//           mean -> gradient-scale clip -> P' = P + deltaP. Open loop,
-//           it also triangulates: one launch for the whole step.
-//   row_tri / col_tri
-//           separable triangle sums (box applied twice per axis, each
-//           pass truncated to the image) of the frame (-> DC) and then of
-//           the quadrature products iac*cos, iac*sin of 2*pi*P'/T.
-//   finish  amplitude, atan2, per-pixel arccos refinement, amplitude
-//           gate -> correction map, plus per (GATE_BAND band, column
-//           tile) partial sums for the carrier gate.
-//   snap    reduce each band's partials in a fixed order (no float
-//           atomics: the gate is deterministic) -> gate -> P = P' +
-//           correction -> triangulate.
+//   track     stripe track on the tile + 1 px halo -> deltaP select -> 3x3
+//             mean -> gradient-scale clip -> P' = P + deltaP. Open loop,
+//             it also triangulates: one launch for the whole step.
+//   lock_dc   DC = triangle(frame) / weight on a 64x32 tile: the frame
+//             and its halo staged in shared memory, both separable passes
+//             (box applied twice per axis, each pass truncated to the
+//             image) in the block.
+//   lock_corr on one GATE_BAND band x 32 columns, plus the column to their
+//             left for the gate: the quadrature products iac*cos, iac*sin
+//             of 2*pi*P'/T, their triangle sums C and S (in shared memory
+//             only), then amplitude, atan2, per-pixel arccos refinement,
+//             amplitude gate -> correction map, and the tile's partial
+//             sums for the carrier gate.
+//   snap      reduce each band's partials in a fixed order (no float
+//             atomics: the gate is deterministic) -> gate -> P = P' +
+//             correction -> triangulate.
 //
 // The carrier gate spans all columns of a band, so no tile decides it
-// alone; that is why finish and snap are separate launches.
+// alone; that is why lock_corr and snap are separate launches. The lock's
+// only device-memory scratch is DC, the correction map and the partials.
 //
-// The launches after track are also the standalone lock, slc_phase_lock,
-// which replaces slc_tpu/pallas/phaselock.py:216 phase_lock_pallas: the
-// same correction and re-triangulation on a given prediction P (u8 frame
-// and f32 P in, P, z, x, y out: 21 B/px). With the open-loop step before
-// it, it is the two-kernel form of the locked step, equal to the fused
-// form bit for bit.
+// The lock's launches (lock_dc, lock_corr, snap) are also the standalone
+// lock, slc_phase_lock, which replaces slc_tpu/pallas/phaselock.py:216
+// phase_lock_pallas: the same correction and re-triangulation on a given
+// prediction P (u8 frame and f32 P in, P, z, x, y out: 21 B/px). With the
+// open-loop step before it, it is the two-kernel form of the locked step,
+// equal to the fused form bit for bit.
+//
+// Every triangle sum adds its taps in the plain version's order (the
+// truncated box sums in ascending index, the row pass before the column
+// pass, each product rounded before it is summed), so the lock's outputs
+// do not depend on the tile shape. The sums are direct, not running: a
+// thread keeps kSum neighbouring outputs in registers and loads each tap
+// from shared memory once for all of them. Only lock_dc's row sums, exact
+// integers in float, run.
+//
+// Bound: not by device memory (the lock must move 21 B/px, the maps stay
+// in L2) but by instructions: n adds per output and pass in the plain
+// version's order, and the halo's share of the staged products.
 #include "common.cuh"
 
 namespace {
@@ -39,8 +55,11 @@ namespace {
 constexpr double kPi = 3.141592653589793;
 constexpr float kTwoPi = (float)(2.0 * kPi);
 constexpr int kTrackW = 128, kTrackH = 32;   // track tile (outputs)
-constexpr int kColW = 32, kColH = 64;        // col_tri tile
-constexpr int kFinW = 32;                    // finish/snap tile columns
+constexpr int kLockW = 32;       // lock tile columns; a gate partial each
+constexpr int kLockDcH = 64;     // lock_dc tile rows
+constexpr int kDcChunk = 32;     // input rows staged at once by lock_dc
+constexpr int kCorrChunk = 16;   // and by lock_corr (5 blocks per SM)
+constexpr int kSum = 8;          // neighbouring window sums per thread
 constexpr int kThreads = 256;
 
 // Stage A (+ D open loop). The 3x3 mean pads with zeros outside the
@@ -123,108 +142,293 @@ __global__ void track_kernel(const uint8_t* __restrict__ frame,
   }
 }
 
-// Row pass of the triangle: out[c] = sum over j in [c-r, c+r] of
-// inner[j], inner[j] = sum over k in [j-r, j+r] of x[k], all indices
-// truncated to [0, w) (slc_tpu/ops/demod.py:76-97). One block per row.
-// MODE 0: x = frame. MODE 1: x = iac*cos(2*pi*P'/T), iac*sin(...), with
-// iac = frame - dc.
-template <int MODE>
-__global__ void row_tri_kernel(const uint8_t* __restrict__ frame,
-                               const float* __restrict__ dc,
-                               const float* __restrict__ pu,
-                               float two_over_t, float* __restrict__ out0,
-                               float* __restrict__ out1, int w, int r) {
-  constexpr int NF = MODE == 0 ? 1 : 2;
-  extern __shared__ float sm[];
-  float* xin = sm;             // NF x w
-  float* inner = sm + NF * w;  // NF x w
-  const size_t base = (size_t)blockIdx.x * w;
-  for (int c = threadIdx.x; c < w; c += blockDim.x) {
-    const float f = (float)frame[base + c];
-    if (MODE == 0) {
-      xin[c] = f;
-    } else {
-      const float iac = f - dc[base + c];
-      float sn, cs;
-      sincospif(pu[base + c] * two_over_t, &sn, &cs);
-      xin[c] = iac * cs;
-      xin[w + c] = iac * sn;
-    }
+// The last R taps of window_sums: a[m] = x[m * stride] for m < kSum.
+template <int R>
+__device__ __forceinline__ void window_tail(const float* x, int stride,
+                                            const float (&a)[kSum],
+                                            float (&acc)[kSum]) {
+  float b[R > 1 ? R - 1 : 1];
+#pragma unroll
+  for (int t = 0; t < R - 1; ++t) b[t] = x[(kSum + t) * stride];
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+#pragma unroll
+    for (int m = 0; m < kSum; ++m)
+      acc[m] += m + j < kSum ? a[m + j] : b[m + j - kSum];
+}
+
+// acc[m] = sum over d in [0, n) of x[(m + d) * stride], m in [0, kSum),
+// each sum in ascending d from +0: blocks of kSum taps, then a tail of
+// n % kSum. Each tap is loaded once; the reads stay within
+// x[0 .. (n + kSum - 1) * stride].
+__device__ __forceinline__ void window_sums(const float* x, int stride,
+                                            int n, float (&acc)[kSum]) {
+  static_assert(kSum == 8, "window_sums' tail cases assume kSum == 8");
+  float a[kSum], b[kSum];
+#pragma unroll
+  for (int m = 0; m < kSum; ++m) {
+    acc[m] = 0.0f;
+    a[m] = x[m * stride];
   }
-  __syncthreads();
-  for (int c = threadIdx.x; c < w; c += blockDim.x) {
-    const int lo = max(0, c - r), hi = min(w - 1, c + r);
-    for (int f = 0; f < NF; ++f) {
-      float s = 0.0f;
-      for (int k = lo; k <= hi; ++k) s += xin[f * w + k];
-      inner[f * w + c] = s;
-    }
+  const int full = n / kSum;
+#pragma unroll 2
+  for (int k = 0; k < full; ++k) {
+    const float* xk = x + k * kSum * stride;
+#pragma unroll
+    for (int m = 0; m < kSum; ++m) b[m] = xk[(kSum + m) * stride];
+#pragma unroll
+    for (int j = 0; j < kSum; ++j)
+#pragma unroll
+      for (int m = 0; m < kSum; ++m)
+        acc[m] += m + j < kSum ? a[m + j] : b[m + j - kSum];
+#pragma unroll
+    for (int m = 0; m < kSum; ++m) a[m] = b[m];
   }
-  __syncthreads();
-  for (int c = threadIdx.x; c < w; c += blockDim.x) {
-    const int lo = max(0, c - r), hi = min(w - 1, c + r);
-    for (int f = 0; f < NF; ++f) {
-      float s = 0.0f;
-      for (int k = lo; k <= hi; ++k) s += inner[f * w + k];
-      (f == 0 ? out0 : out1)[base + c] = s;
-    }
+  const float* xt = x + full * kSum * stride;
+  switch (n - full * kSum) {
+    case 1: window_tail<1>(xt, stride, a, acc); break;
+    case 2: window_tail<2>(xt, stride, a, acc); break;
+    case 3: window_tail<3>(xt, stride, a, acc); break;
+    case 4: window_tail<4>(xt, stride, a, acc); break;
+    case 5: window_tail<5>(xt, stride, a, acc); break;
+    case 6: window_tail<6>(xt, stride, a, acc); break;
+    case 7: window_tail<7>(xt, stride, a, acc); break;
+    default: break;
   }
 }
 
-// Column pass of the triangle on a kColH x kColW tile, with the same
-// truncation. MODE 0: out0 = DC = sum / (wv[row] * wu[col]), the exact
-// in-image weight. MODE 1: out0, out1 = the raw C and S sums.
-template <int MODE>
-__global__ void col_tri_kernel(const float* __restrict__ in0,
-                               const float* __restrict__ in1,
-                               float* __restrict__ out0,
-                               float* __restrict__ out1,
-                               const float* __restrict__ wu,
-                               const float* __restrict__ wv, int h, int w,
-                               int r) {
-  constexpr int NF = MODE == 0 ? 1 : 2;
-  extern __shared__ float sm[];
-  const int nin = kColH + 4 * r, ninner = kColH + 2 * r;
-  float* xin = sm;                       // NF x nin x kColW
-  float* inner = sm + NF * nin * kColW;  // NF x ninner x kColW
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int gx = blockIdx.x * kColW + tx, y0 = blockIdx.y * kColH;
-  for (int lr = ty; lr < nin; lr += blockDim.y) {
-    const int gy = y0 - 2 * r + lr;
-    float v0 = 0.0f, v1 = 0.0f;
-    if (gy >= 0 && gy < h && gx < w) {
-      const size_t gi = (size_t)gy * w + gx;
-      v0 = in0[gi];
-      if (NF == 2) v1 = in1[gi];
-    }
-    xin[lr * kColW + tx] = v0;
-    if (NF == 2) xin[(nin + lr) * kColW + tx] = v1;
+// The same sums as window_sums (stride 1) for inputs whose partial sums
+// are all integers below 2^24, so that every float addition is exact in
+// any order: one direct sum, then a running one.
+__device__ __forceinline__ void window_sums_exact(const float* x, int n,
+                                                  float (&acc)[kSum]) {
+  float s = 0.0f;
+  for (int d = 0; d < n; ++d) s += x[d];
+  acc[0] = s;
+#pragma unroll
+  for (int m = 1; m < kSum; ++m) {
+    s += x[m + n - 1] - x[m - 1];
+    acc[m] = s;
   }
-  __syncthreads();
-  for (int j = ty; j < ninner; j += blockDim.y) {
-    const int gj = y0 - r + j;
-    for (int f = 0; f < NF; ++f) {
-      float s = 0.0f;
-      if (gj >= 0 && gj < h)
-        for (int k = 0; k <= 2 * r; ++k) s += xin[(f * nin + j + k) * kColW + tx];
-      inner[(f * ninner + j) * kColW + tx] = s;
-    }
+}
+
+// dst[m * step] = acc[m] for the m in [0, kSum) with lo <= m0 + m < hi,
+// m0 + m < n, and 0 for those outside [lo, hi): a group's sums, stored
+// with the truncation to the image (m0 + m is the image row or column).
+__device__ __forceinline__ void store_sums(float* dst, int step,
+                                           const float (&acc)[kSum], int m0,
+                                           int lo, int hi, int n) {
+  if (m0 >= lo && m0 + kSum <= hi && m0 + kSum <= n) {
+#pragma unroll
+    for (int m = 0; m < kSum; ++m) dst[m * step] = acc[m];
+    return;
   }
-  __syncthreads();
-  for (int i = ty; i < kColH; i += blockDim.y) {
-    const int gy = y0 + i;
-    if (gy >= h || gx >= w) continue;
+#pragma unroll
+  for (int m = 0; m < kSum; ++m)
+    if (m0 + m < n)
+      dst[m * step] = m0 + m >= lo && m0 + m < hi ? acc[m] : 0.0f;
+}
+
+// Shared-memory plan of one triangle-sum tile: th output rows, nc output
+// columns, half-windows ru (along a row) and rv (down a column), input
+// rows staged ``chunk`` at a time. Region A holds the staged inputs and
+// the row pass's inner sums of one chunk, later the column pass's inner
+// sums; region B the row pass's
+// outputs for all th + 4 rv input rows, later the tile's sums. Pitches
+// leave room for the reads of window_sums past a row's last output, and
+// are odd where the lanes of a warp walk down rows.
+struct TriPlan {
+  int th, ru, rv, chunk;
+  int nin;     // input rows, th + 4 rv
+  int nx, px;  // staged columns, nc + 4 ru, and their pitch
+  int ni, pi;  // row-inner columns, nc + 2 ru, and their pitch
+  int nci;     // column-inner rows, th + 2 rv
+  int pb;      // pitch of the tile's columns in the column pass
+  __host__ __device__ TriPlan(int th_, int nc_, int ru_, int rv_,
+                              int chunk_)
+      : th(th_), ru(ru_), rv(rv_), chunk(chunk_),
+        nin(th_ + 4 * rv_),
+        nx(nc_ + 4 * ru_), px((nc_ + 4 * ru_ + kSum) | 1),
+        ni(nc_ + 2 * ru_), pi((nc_ + 2 * ru_ + kSum) | 1),
+        nci(th_ + 2 * rv_), pb(nc_ | 1) {}
+  __host__ __device__ int floats_a(int nf) const {
+    const int rows = chunk * (px + pi), cols = (nci + kSum) * pb;
+    return nf * (rows > cols ? rows : cols);
+  }
+  __host__ __device__ int floats_b(int nf) const {
+    return nf * (nin + kSum) * pb;
+  }
+};
+
+// The inputs of lock_dc: the frame. Its row pass sums at most 63 * 63
+// values of 0..255, integers below 2^24: exact in float whatever the
+// order (the column pass's sums may not be, and keep the order).
+struct FrameIn {
+  static constexpr int NF = 1;
+  static constexpr bool kExactRows = true;
+  const uint8_t* frame;
+  int w;
+  __device__ void operator()(int gy, int gx, float* v) const {
+    v[0] = (float)frame[(size_t)gy * w + gx];
+  }
+};
+
+// The inputs of lock_corr: iac*cos and iac*sin of 2*pi*pred/T, iac =
+// frame - DC, each product rounded (no FMA contraction into the sums).
+struct QuadIn {
+  static constexpr int NF = 2;
+  static constexpr bool kExactRows = false;
+  const uint8_t* frame;
+  const float* dc;
+  const float* pred;
+  float two_over_t;
+  int w;
+  __device__ void operator()(int gy, int gx, float* v) const {
     const size_t gi = (size_t)gy * w + gx;
-    for (int f = 0; f < NF; ++f) {
-      float s = 0.0f;
-      for (int k = 0; k <= 2 * r; ++k)
-        s += inner[(f * ninner + i + k) * kColW + tx];
-      if (MODE == 0) {
-        out0[gi] = s / (wv[gy] * wu[gx]);
+    const float iac = (float)frame[gi] - dc[gi];
+    float sn, cs;
+    sincospif(pred[gi] * two_over_t, &sn, &cs);
+    v[0] = __fmul_rn(iac, cs);
+    v[1] = __fmul_rn(iac, sn);
+  }
+};
+
+// Work item q of NF * n items as (field, group): NF is 1 or 2.
+template <int NF>
+__device__ __forceinline__ int field_of(int q, int n) {
+  return NF == 2 && q >= n ? 1 : 0;
+}
+
+// Triangle sums of the tile whose output rows start at global row y0 and
+// its NC columns (the plan's nc) at xo, CHUNK (the plan's chunk) input
+// rows staged at a time (slc_tpu/ops/demod.py:76-97): per field, out(y,
+// x) = column double box of the row double box of the input, each box
+// pass truncated to the image (inputs outside it are 0, and an inner sum
+// at a row or column outside it is 0). Leaves field f's sum at tile row
+// i, column c in sb[(f * th + i) * pb + c]. Block: 32 x 8 threads, all
+// taking part; the caller's reads follow a barrier.
+template <int NC, int CHUNK, class In>
+__device__ void tri_tile(const In& in, const TriPlan& pl, int h, int w,
+                         int y0, int xo, float* sa, float* sb) {
+  constexpr int NF = In::NF;
+  constexpr int kRowsPerWarp = 32 / CHUNK;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int nu = 2 * pl.ru + 1, nv = 2 * pl.rv + 1;
+  float* sx = sa;                          // NF x CHUNK x px
+  float* si = sa + NF * CHUNK * pl.px;     // NF x CHUNK x pi
+  const int xs = xo - 2 * pl.ru;           // column of sx's column 0
+  const int gi_n = (pl.ni + kSum - 1) / kSum;
+  const int go_n = (NC + kSum - 1) / kSum;
+  const int brows = pl.nin + kSum;         // rows of each field in sb
+  // Row-pass work items: lane lr takes row lr of the chunk, so the lanes
+  // of a warp walk down rows (odd pitches: no bank conflicts).
+  const int lr = tx % CHUNK;
+  const int slot0 = ty * kRowsPerWarp + tx / CHUNK;
+  const int nslots = blockDim.y * kRowsPerWarp;
+  const int nt = blockDim.x * blockDim.y;
+  const float inv_nx = 1.0f / (float)pl.nx;
+
+  for (int r0 = 0; r0 < pl.nin; r0 += CHUNK) {
+    const int nr = min(CHUNK, pl.nin - r0);
+    const int gy0 = y0 - 2 * pl.rv + r0;
+    for (int p = ty * blockDim.x + tx; p < nr * pl.nx; p += nt) {
+      // r = p / nx in float: p + 1/2 is at least 1/(2 nx) from a multiple
+      // of nx, far above the rounding of the product (p < 2^13).
+      const int r = __float2int_rd(((float)p + 0.5f) * inv_nx);
+      const int c = p - r * pl.nx, gy = gy0 + r, gx = xs + c;
+      float v[NF];
+      if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
+        in(gy, gx, v);
       } else {
-        (f == 0 ? out0 : out1)[gi] = s;
+#pragma unroll
+        for (int f = 0; f < NF; ++f) v[f] = 0.0f;
+      }
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+        sx[(f * CHUNK + r) * pl.px + c] = v[f];
+    }
+    __syncthreads();
+    if (lr < nr) {
+      // Inner sums: si's column j is global column xo - ru + j.
+      for (int q = slot0; q < NF * gi_n; q += nslots) {
+        const int f = field_of<NF>(q, gi_n), g = q - f * gi_n;
+        float acc[kSum];
+        const float* x = sx + (f * CHUNK + lr) * pl.px + g * kSum;
+        if (In::kExactRows)
+          window_sums_exact(x, nu, acc);
+        else
+          window_sums(x, 1, nu, acc);
+        // In image columns: j with 0 <= xo - ru + j < w.
+        store_sums(si + (f * CHUNK + lr) * pl.pi + g * kSum, 1, acc,
+                   g * kSum, pl.ru - xo, w + pl.ru - xo, pl.ni);
       }
     }
+    __syncthreads();
+    if (lr < nr) {
+      // Outer sums: sb's column c is global column xo + c.
+      for (int q = slot0; q < NF * go_n; q += nslots) {
+        const int f = field_of<NF>(q, go_n), g = q - f * go_n;
+        float acc[kSum];
+        const float* x = si + (f * CHUNK + lr) * pl.pi + g * kSum;
+        if (In::kExactRows)
+          window_sums_exact(x, nu, acc);
+        else
+          window_sums(x, 1, nu, acc);
+        store_sums(sb + (f * brows + r0 + lr) * pl.pb + g * kSum, 1, acc,
+                   g * kSum, 0, NC, NC);
+      }
+    }
+    // The next chunk's staging writes sx, read before the last barrier.
+  }
+  __syncthreads();
+
+  // Column pass, the lanes of a warp on neighbouring columns. Inner sums:
+  // sci's row j is global row y0 - rv + j.
+  const int tid = ty * blockDim.x + tx;
+  float* sci = sa;                         // NF x (nci + kSum) x pb
+  const int crows = pl.nci + kSum;
+  const int gc_n = (pl.nci + kSum - 1) / kSum;
+  const int gt_n = (pl.th + kSum - 1) / kSum;
+  for (int p = tid; p < NF * gc_n * NC; p += nt) {
+    const int c = p % NC, q = p / NC;
+    const int f = field_of<NF>(q, gc_n), g = q - f * gc_n;
+    float acc[kSum];
+    window_sums(sb + (f * brows + g * kSum) * pl.pb + c, pl.pb, nv, acc);
+    // In image rows: j with 0 <= y0 - rv + j < h.
+    store_sums(sci + (f * crows + g * kSum) * pl.pb + c, pl.pb, acc,
+               g * kSum, pl.rv - y0, h + pl.rv - y0, pl.nci);
+  }
+  __syncthreads();
+  for (int p = tid; p < NF * gt_n * NC; p += nt) {
+    const int c = p % NC, q = p / NC;
+    const int f = field_of<NF>(q, gt_n), g = q - f * gt_n;
+    float acc[kSum];
+    window_sums(sci + (f * crows + g * kSum) * pl.pb + c, pl.pb, nv, acc);
+    store_sums(sb + (f * pl.th + g * kSum) * pl.pb + c, pl.pb, acc,
+               g * kSum, 0, pl.th, pl.th);
+  }
+  __syncthreads();
+}
+
+// Lock launch 1: DC = triangle(frame) / (wv[row] * wu[col]), the exact
+// in-image weight. Block: kLockW x 8 threads, a kLockDcH x kLockW tile.
+// Moves the frame (1 B/px and its halo, from L2 where tiles overlap) and
+// writes DC (4 B/px).
+__global__ void lock_dc_kernel(const uint8_t* __restrict__ frame,
+                               const float* __restrict__ wu,
+                               const float* __restrict__ wv,
+                               float* __restrict__ dc, int h, int w, int ru,
+                               int rv) {
+  extern __shared__ float sm[];
+  const TriPlan pl(kLockDcH, kLockW, ru, rv, kDcChunk);
+  float* sb = sm + pl.floats_a(1);
+  const int x0 = blockIdx.x * kLockW, y0 = blockIdx.y * kLockDcH;
+  tri_tile<kLockW, kDcChunk>(FrameIn{frame, w}, pl, h, w, y0, x0, sm, sb);
+  const int gx = x0 + threadIdx.x;
+  for (int i = threadIdx.y; i < kLockDcH; i += blockDim.y) {
+    const int gy = y0 + i;
+    if (gy >= h || gx >= w) continue;
+    dc[(size_t)gy * w + gx] = sb[i * pl.pb + threadIdx.x] / (wv[gy] * wu[gx]);
   }
 }
 
@@ -243,79 +447,100 @@ __device__ __forceinline__ void demod_px(float c, float s, float wgt,
   *ok = *amp > amp_floor && pu > 0.0f;
 }
 
-// Stage C's pointwise tail: the correction map, and per (band, column
-// tile) the partial sums of gx*gm and gm, gx the wrapped difference of
-// delta_phi between columns c-1 and c where both are ok
-// (slc_tpu/ops/demod.py:204-224). Block: kFinW x 8 threads over one
-// band of rows.
-__global__ void finish_kernel(const uint8_t* __restrict__ frame,
-                              const float* __restrict__ dc,
-                              const float* __restrict__ pu,
-                              const float* __restrict__ cc,
-                              const float* __restrict__ ss,
-                              const float* __restrict__ wu,
-                              const float* __restrict__ wv,
-                              float* __restrict__ corr,
-                              float* __restrict__ partial, int h, int w,
-                              int band, float phase_scale, float p_scale,
-                              float amp_floor) {
-  __shared__ float red_num[kThreads], red_den[kThreads];
+// Lock launch 2: C and S = triangle(iac * cos, iac * sin of 2*pi*pred/T)
+// on one band of rows and kLockW + 1 columns (the tile's and the one to
+// its left), kept in shared memory; then the correction map, and the
+// partial sums of gx*gm and gm, gx the wrapped difference of delta_phi
+// between columns c-1 and c where both are ok (slc_tpu/ops/demod.py:
+// 204-224). Block: kLockW x 8 threads; thread (tx, ty) takes rows ty,
+// ty + 8, ... of column tx, and the 256 partials reduce in a fixed tree,
+// so the gate does not depend on the schedule. Reads frame, DC and pred
+// with the windows' halo (mostly from L2); writes the correction (4 B/px)
+// and one (num, den) pair per block.
+__global__ void lock_corr_kernel(const uint8_t* __restrict__ frame,
+                                 const float* __restrict__ dc,
+                                 const float* __restrict__ pred,
+                                 const float* __restrict__ wu,
+                                 const float* __restrict__ wv,
+                                 float* __restrict__ corr,
+                                 float* __restrict__ partial, int h, int w,
+                                 int ru, int rv, int band, float two_over_t,
+                                 float phase_scale, float p_scale,
+                                 float amp_floor) {
+  constexpr int NC = kLockW + 1;
+  extern __shared__ float sm[];
+  const TriPlan pl(band, NC, ru, rv, kCorrChunk);
+  float* sb = sm + pl.floats_a(2);
+  const int x0 = blockIdx.x * kLockW, y0 = blockIdx.y * band;
+  tri_tile<NC, kCorrChunk>(QuadIn{frame, dc, pred, two_over_t, w}, pl, h,
+                           w, y0, x0 - 1, sm, sb);
+  // Demodulate each pixel of the band's NC columns once, in place: C
+  // becomes the amplitude, S delta_phi; region A (free once tri_tile has
+  // returned) takes the ok flags after the gate's reduction buffers.
+  float* amp = sb;                      // column c is global x0 - 1 + c
+  float* dphi = sb + band * pl.pb;
+  float* red_num = sm;
+  float* red_den = sm + kThreads;
+  float* okf = sm + 2 * kThreads;
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int gx = blockIdx.x * kFinW + tx, y0 = blockIdx.y * band;
+  const int tid = ty * blockDim.x + tx;
+  for (int p = tid; p < band * NC; p += kThreads) {
+    const int i = p / NC, c = p % NC;
+    const int gy = y0 + i, gx = x0 - 1 + c;
+    if (gy >= h || gx < 0 || gx >= w) continue;
+    const int k = i * pl.pb + c;
+    bool ok;
+    demod_px(amp[k], dphi[k], wv[gy] * wu[gx], pred[(size_t)gy * w + gx],
+             amp_floor, &amp[k], &dphi[k], &ok);
+    okf[k] = ok ? 1.0f : 0.0f;
+  }
+  __syncthreads();
+  const int gx = x0 + tx;
   float num = 0.0f, den = 0.0f;
   for (int i = ty; i < band; i += blockDim.y) {
     const int gy = y0 + i;
     if (gy >= h || gx >= w) continue;
     const size_t gi = (size_t)gy * w + gx;
-    const float p = pu[gi];
-    float amp, dphi;
-    bool ok;
-    demod_px(cc[gi], ss[gi], wv[gy] * wu[gx], p, amp_floor, &amp, &dphi,
-             &ok);
+    const int k = i * pl.pb + tx + 1;
+    const float a = amp[k], dp = dphi[k];
+    const bool ok = okf[k] != 0.0f;
     // Per-pixel arccos refinement against the window-corrected
     // prediction, blended by sin^2(phi).
     const float iac = (float)frame[gi] - dc[gi];
-    const float cosp = fminf(fmaxf(iac / fmaxf(2.0f * amp, 1e-6f), -1.0f),
+    const float cosp = fminf(fmaxf(iac / fmaxf(2.0f * a, 1e-6f), -1.0f),
                              1.0f);
     const float phimag = acosf(cosp);
-    const float phi_ref = phase_scale * p + dphi;
+    const float phi_ref = phase_scale * pred[gi] + dp;
     const float d_pos = wrap_pi(phimag - phi_ref);
     const float d_neg = wrap_pi(-phimag - phi_ref);
     const float d_px = fabsf(d_pos) <= fabsf(d_neg) ? d_pos : d_neg;
     const float conf = 1.0f - cosp * cosp;
-    const float dpl = (dphi + conf * d_px) * p_scale;
+    const float dpl = (dp + conf * d_px) * p_scale;
     corr[gi] = ok ? dpl : 0.0f;
-    if (gx >= 1) {
-      float amp_l, dphi_l;
-      bool ok_l;
-      demod_px(cc[gi - 1], ss[gi - 1], wv[gy] * wu[gx - 1], pu[gi - 1],
-               amp_floor, &amp_l, &dphi_l, &ok_l);
-      if (ok && ok_l) {
-        num += wrap_pi(dphi - dphi_l);
-        den += 1.0f;
-      }
+    if (gx >= 1 && ok && okf[k - 1] != 0.0f) {
+      num += wrap_pi(dp - dphi[k - 1]);
+      den += 1.0f;
     }
   }
-  const int t = ty * blockDim.x + tx;
-  red_num[t] = num;
-  red_den[t] = den;
+  red_num[tid] = num;
+  red_den[tid] = den;
   __syncthreads();
   for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (t < s) {
-      red_num[t] += red_num[t + s];
-      red_den[t] += red_den[t + s];
+    if (tid < s) {
+      red_num[tid] += red_num[tid + s];
+      red_den[tid] += red_den[tid + s];
     }
     __syncthreads();
   }
-  if (t == 0) {
+  if (tid == 0) {
     const size_t k = 2 * ((size_t)blockIdx.y * gridDim.x + blockIdx.x);
     partial[k] = red_num[0];
     partial[k + 1] = red_den[0];
   }
 }
 
-// Stage C's gate and stage D: P = P' + correction where the band's
-// amplitude-gated mean gradient is within the threshold, then
+// Lock launch 3, the gate and stage D: P = P' + correction where the
+// band's amplitude-gated mean gradient is within the threshold, then
 // triangulate. ``pu_in`` holds P', ``pu_out`` gets P; the locked step
 // passes one buffer for both (each thread reads, then writes, its own
 // pixel), the standalone lock a fresh output.
@@ -343,7 +568,7 @@ __global__ void snap_kernel(const float* pu_in, float* pu_out,
     gate = g ? 1 : 0;
   }
   __syncthreads();
-  const int gx = blockIdx.x * kFinW + tx, y0 = blockIdx.y * band;
+  const int gx = blockIdx.x * kLockW + tx, y0 = blockIdx.y * band;
   for (int i = ty; i < band; i += blockDim.y) {
     const int gy = y0 + i;
     if (gy >= h || gx >= w) continue;
@@ -390,16 +615,16 @@ cudaError_t launch_track(const uint8_t* frame, const float* prev_sw,
 }
 
 int n_bands(int h, int band) { return (h + band - 1) / band; }
-int n_tiles(int w) { return (w + kFinW - 1) / kFinW; }
+int n_tiles(int w) { return (w + kLockW - 1) / kLockW; }
 
 // Where the lock's launches stop: all of them, or (profiling only) after
-// the DC passes or after the C/S passes.
+// lock_dc or after lock_corr.
 enum LockStop { kLockAll = 0, kLockAfterDc = 2, kLockAfterCorr = 3 };
 
-// Launches B-D of the locked step: the lock-in correction of the
-// prediction ``pred`` and the re-triangulation, P into ``pu_out`` (which
-// may be ``pred`` itself). Shared by the locked step, which gives it the
-// P' of launch A, and by the standalone lock, which gives it the
+// The lock's three launches: the lock-in correction of the prediction
+// ``pred`` and the re-triangulation, P into ``pu_out`` (which may be
+// ``pred`` itself). Shared by the locked step, which gives it the P' of
+// its track launch, and by the standalone lock, which gives it the
 // caller's prediction; so the two cannot drift apart.
 cudaError_t launch_lock(const uint8_t* frame, const float* pred,
                         float* pu_out, float* z, float* x, float* y,
@@ -410,53 +635,34 @@ cudaError_t launch_lock(const uint8_t* frame, const float* pred,
                         cudaStream_t stream) {
   const size_t npx = (size_t)h * w;
   float* dc = scratch;
-  float* ta = scratch + npx;       // row pass; later the correction map
-  float* tb = scratch + 2 * npx;
-  float* cc = scratch + 3 * npx;
-  float* ss = scratch + 4 * npx;
-  float* partial = scratch + 5 * npx;
+  float* corr = scratch + npx;
+  float* partial = scratch + 2 * npx;
   const int ru = win_u / 2, rv = win_v / 2;
   const float two_over_t = (float)(2.0 / (double)period);
   const float phase_scale = (float)(2.0 * kPi / (double)period);
   const float p_scale = (float)((double)period / (2.0 * kPi));
+  const dim3 block(kLockW, kThreads / kLockW);
   cudaError_t err;
 
-  // B: DC = triangle(frame) / weight.
-  const size_t smem_r0 = sizeof(float) * 2 * w;
-  if ((err = fit_smem(row_tri_kernel<0>, smem_r0)) != cudaSuccess)
+  const TriPlan pd(kLockDcH, kLockW, ru, rv, kDcChunk);
+  const size_t smem_dc = sizeof(float) * (pd.floats_a(1) + pd.floats_b(1));
+  if ((err = fit_smem(lock_dc_kernel, smem_dc)) != cudaSuccess) return err;
+  lock_dc_kernel<<<dim3(n_tiles(w), n_bands(h, kLockDcH)), block, smem_dc,
+                   stream>>>(frame, wu, wv, dc, h, w, ru, rv);
+  if ((err = cudaGetLastError()) != cudaSuccess || stop == kLockAfterDc)
     return err;
-  row_tri_kernel<0><<<h, kThreads, smem_r0, stream>>>(
-      frame, nullptr, nullptr, 0.0f, ta, nullptr, w, ru);
-  const dim3 cgrid((w + kColW - 1) / kColW, (h + kColH - 1) / kColH);
-  const dim3 cblock(kColW, 8);
-  const size_t smem_c0 = sizeof(float) * kColW * (kColH + 4 * rv + kColH + 2 * rv);
-  if ((err = fit_smem(col_tri_kernel<0>, smem_c0)) != cudaSuccess)
-    return err;
-  col_tri_kernel<0><<<cgrid, cblock, smem_c0, stream>>>(
-      ta, nullptr, dc, nullptr, wu, wv, h, w, rv);
-  if (stop == kLockAfterDc) return cudaGetLastError();
 
-  // B + C: C and S = triangle(iac * cos, iac * sin of 2*pi*pred/T).
-  const size_t smem_r1 = sizeof(float) * 4 * w;
-  if ((err = fit_smem(row_tri_kernel<1>, smem_r1)) != cudaSuccess)
+  const dim3 grid(n_tiles(w), n_bands(h, band));
+  const TriPlan pc(band, kLockW + 1, ru, rv, kCorrChunk);
+  const size_t smem_c = sizeof(float) * (pc.floats_a(2) + pc.floats_b(2));
+  if ((err = fit_smem(lock_corr_kernel, smem_c)) != cudaSuccess) return err;
+  lock_corr_kernel<<<grid, block, smem_c, stream>>>(
+      frame, dc, pred, wu, wv, corr, partial, h, w, ru, rv, band,
+      two_over_t, phase_scale, p_scale, amp_floor);
+  if ((err = cudaGetLastError()) != cudaSuccess || stop == kLockAfterCorr)
     return err;
-  row_tri_kernel<1><<<h, kThreads, smem_r1, stream>>>(
-      frame, dc, pred, two_over_t, ta, tb, w, ru);
-  const size_t smem_c1 = 2 * smem_c0;
-  if ((err = fit_smem(col_tri_kernel<1>, smem_c1)) != cudaSuccess)
-    return err;
-  col_tri_kernel<1><<<cgrid, cblock, smem_c1, stream>>>(
-      ta, tb, cc, ss, wu, wv, h, w, rv);
-  if (stop == kLockAfterCorr) return cudaGetLastError();
 
-  // C: correction map and gate partials; then gate, snap, triangulate.
-  const dim3 fgrid(n_tiles(w), n_bands(h, band));
-  const dim3 fblock(kFinW, kThreads / kFinW);
-  float* corr = ta;
-  finish_kernel<<<fgrid, fblock, 0, stream>>>(
-      frame, dc, pred, cc, ss, wu, wv, corr, partial, h, w, band,
-      phase_scale, p_scale, amp_floor);
-  snap_kernel<<<fgrid, fblock, 0, stream>>>(
+  snap_kernel<<<grid, block, 0, stream>>>(
       pred, pu_out, corr, partial, n_tiles(w), gate_on, gate_thresh, z, x,
       y, h, w, band, t);
   return cudaGetLastError();
@@ -477,16 +683,15 @@ extern "C" int slc_dynamic_step(const uint8_t* frame, const float* prev_sw,
                            stream);
 }
 
-// Floats of scratch the locked step and the standalone lock need: DC, two
-// row-pass buffers (the first reused for the correction map), C, S, and
-// the band partials.
+// Floats of scratch the locked step and the standalone lock need: DC, the
+// correction map, and the band partials.
 extern "C" long slc_dynamic_step_lock_scratch(int h, int w, int band) {
-  return 5L * h * w + 2L * n_bands(h, band) * n_tiles(w);
+  return 2L * h * w + 2L * n_bands(h, band) * n_tiles(w);
 }
 
 // ``ablate`` (profiling only; the outputs are then garbage): 0 runs every
-// launch, 1 stops after launch A (track), 2 after the DC passes, 3 after
-// the C/S passes, as slc_tpu/pallas/dynamic_lock.py:316-319 truncates its
+// launch, 1 stops after the track launch, 2 after lock_dc, 3 after
+// lock_corr, as slc_tpu/pallas/dynamic_lock.py:316-319 truncates its
 // kernel.
 extern "C" int slc_dynamic_step_lock(
     const uint8_t* frame, const float* prev_sw, const float* prev_sb,
@@ -497,7 +702,7 @@ extern "C" int slc_dynamic_step_lock(
     int gate_on, float gate_thresh, int band, int ablate, const float* tri,
     cudaStream_t stream) {
   const Tri t = tri_from_host(tri);
-  // A: track and integrate; P' lands in ``pu``.
+  // Track and integrate; P' lands in ``pu``.
   cudaError_t err = launch_track(frame, prev_sw, prev_sb, prev_pu, pu, sw,
                                  sb, nullptr, nullptr, nullptr, h, w,
                                  window, subpixel, fbits, scale_gradient,
@@ -511,8 +716,8 @@ extern "C" int slc_dynamic_step_lock(
 }
 
 // The standalone lock (replaces slc_tpu/pallas/phaselock.py:216
-// phase_lock_pallas): launches B-D on the caller's prediction ``pred``,
-// which is only read; P, z, x, y go to fresh outputs.
+// phase_lock_pallas): the lock's three launches on the caller's
+// prediction ``pred``, which is only read; P, z, x, y go to fresh outputs.
 extern "C" int slc_phase_lock(const uint8_t* frame, const float* pred,
                               float* pu, float* z, float* x, float* y,
                               float* scratch, const float* wu,

@@ -9,12 +9,15 @@ The open-loop step is one launch: stripe tracking on a 2-D tile with a
 1 px halo, deltaP select, 3x3 mean, gradient scale, integration and
 triangulation, all in shared memory and registers. The locked step adds
 the lock-in demodulation, whose triangle filters reach up to 2*win_u - 1
-columns and whose carrier gate spans whole 64-row bands; it runs as seven
-launches that pass full-image maps through device memory (they stay in
-L2 at the reference size): track, row and column triangle passes for the
-DC and then for the quadrature products, a finish pass that writes the
-correction and per-band gate partials, and a snap pass that reduces each
-band's partials in a fixed order, gates, corrects and triangulates.
+columns and whose carrier gate spans whole 64-row bands; it runs as four
+launches: track; ``lock_dc``, the DC triangle sums of the frame on a
+64x32 tile with both passes in the block; ``lock_corr``, on one 64-row
+band x 32 columns, the triangle sums C and S of the quadrature products
+(kept in shared memory), then the correction map and the tile's gate
+partials; and ``snap``, which reduces each band's partials in a fixed
+order, gates, corrects and triangulates. Only DC, the correction and the
+partials pass through device memory (they stay in L2 at the reference
+size). Every sum keeps the plain version's order of additions.
 
 ``frac_bits`` > 0 is the fast sub-pixel mode of the stripe tracking
 (kernels/stripe.py): the same winners, fractions quantized, in the
@@ -180,7 +183,8 @@ def check_lock_args(period: float, win_u: int, win_v: int) -> None:
 
 
 def lock_buffers(h: int, w: int, win_u: int, win_v: int, dev):
-    """The lock launches' device scratch and triangle weights."""
+    """The lock launches' device scratch (DC, the correction map and the
+    gate partials) and triangle weights."""
     scratch = torch.empty(
         _build.lib().slc_dynamic_step_lock_scratch(h, w, GATE_BAND),
         dtype=torch.float32, device=dev)
@@ -210,13 +214,14 @@ def dynamic_step_lock_cuda(frame: torch.Tensor, prev_sw: torch.Tensor,
                            max_carrier_gradient: float = 2e-3,
                            frac_bits: int = 0,
                            ablate: str = "") -> StepMaps:
-    """The hand-written locked step (seven launches, see the module
+    """The hand-written locked step (four launches, see the module
     note). ``max_carrier_gradient`` 0 or inf turns the gate off (see
     :func:`gate_args`). Gate bands are GATE_BAND rows, aligned to row 0.
 
     ``ablate`` (profiling only; the outputs are then garbage): "track",
-    "dc" or "corr" stops after the track launch, the DC passes or the
-    C/S passes, so that device timing splits the step by stage
+    "dc" or "corr" stops after the track launch, after ``lock_dc`` or
+    after ``lock_corr`` (C and S with the correction map and the gate
+    partials), so that device timing splits the step by stage
     (slc_tpu/pallas/dynamic_lock.py:316-319)."""
     if ablate not in _ABLATE:
         raise ValueError(f"ablate must be one of {sorted(_ABLATE)}, got "

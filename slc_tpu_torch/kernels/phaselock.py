@@ -3,14 +3,15 @@ then re-triangulation.
 
 Source note. ``phase_lock_cuda`` replaces slc_tpu/pallas/phaselock.py:216
 ``phase_lock_pallas``, the two-kernel form of the locked step that
-slc_tpu keeps as the comparison point for its fused step. It runs launches
-B-D of the locked step (csrc/dynamic_step.cu ``launch_lock``: triangle DC
-and quadrature passes, finish, snap) on the caller's prediction instead of
-the P' of the step's track launch, so the two cannot drift apart: the
+slc_tpu keeps as the comparison point for its fused step. It runs the
+locked step's three lock launches (csrc/dynamic_step.cu ``launch_lock``:
+``lock_dc``, ``lock_corr``, ``snap``) on the caller's prediction instead
+of the P' of the step's track launch, so the two cannot drift apart: the
 open-loop step followed by this lock equals the fused locked step bit for
 bit. It moves 21 B/px at its floor (u8 frame and f32 P in, P, z, x, y
-out); the intermediate maps pass through device memory and stay in L2 at
-the reference size. The prediction is only read: P lands in a fresh map.
+out); DC and the correction map pass through device memory and stay in
+L2 at the reference size. The prediction is only read: P lands in a fresh
+map.
 
 Gate bands are ``ops.demod.GATE_BAND`` rows aligned to row 0, the
 default ``block_h`` of ``phase_lock_pallas``. ``max_carrier_gradient`` 0
@@ -61,7 +62,7 @@ def phase_lock_cuda(frame: torch.Tensor, pu_pred: torch.Tensor,
                     max_carrier_gradient: float = 2e-3,
                     fov_min: float = 10.0, fov_max: float = 100.0
                     ) -> LockMaps:
-    """The hand-written lock (six launches). ``frame`` contiguous (H, W)
+    """The hand-written lock (three launches). ``frame`` contiguous (H, W)
     u8 and ``pu_pred`` (H, W) float32 on one CUDA device."""
     check_lock_args(period, win_u, win_v)
     if frame.ndim != 2 or frame.numel() == 0:

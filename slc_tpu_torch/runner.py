@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from slc_tpu_torch import cloud
-from slc_tpu_torch.calib import Calibration, build_tables
+from slc_tpu_torch.calib import Calibration, build_tables, resolve_device
 from slc_tpu_torch.checkpoint import latest_checkpoint, load_state, save_state
 from slc_tpu_torch.config import HeterodyneConfig, SystemConfig
 from slc_tpu_torch.dynamic import dynamic_step, init_tracker, reanchor
@@ -45,17 +45,6 @@ class RunReport:
     frames_done: int
     first_frame_points: int
     metrics: MetricsLog
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device without CUDA raises
-    instead of falling back to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but CUDA is not available; "
-            f"pass device='cpu' (CLI: --device cpu) to run on the CPU")
-    return dev
 
 
 def run_replay(dataset_root: str, calib: "Calibration | str",

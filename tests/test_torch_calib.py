@@ -46,7 +46,7 @@ def test_calibration_and_tables_bit_identical(shape, which):
                                       np.asarray(getattr(jc, f)))
     np.testing.assert_array_equal(tc.pro_mat(), jc.pro_mat())
     jt = jcalib.build_tables(jc, h, w)
-    tt = tcalib.build_tables(tc, h, w)
+    tt = tcalib.build_tables(tc, h, w, device="cpu")
     for f in _FIELDS:
         got = getattr(tt, f).numpy()
         assert got.dtype == np.float32
@@ -58,7 +58,7 @@ def test_lin_coeffs_bit_identical(which):
     h, w = 96, 160
     jc, tc = _calibs(h, w)[which]
     jt = jcalib.build_tables(jc, h, w)
-    tt = tcalib.build_tables(tc, h, w)
+    tt = tcalib.build_tables(tc, h, w, device="cpu")
     want = [np.float32(v) for m in (jt.c, jt.d) for v in j_lin_coeffs(m)]
     got = [np.float32(v) for v in tt.coeffs[6:]]
     np.testing.assert_array_equal(got, want)
@@ -72,11 +72,11 @@ def test_tables_from_numpy_roundtrip():
     jc = jcalib.synthetic_calibration(cam_h=96, cam_w=160)
     jt = jcalib.build_tables(jc, 96, 160)
     tt = tcalib.TriangulationTables.from_numpy(
-        {f: np.asarray(getattr(jt, f)) for f in _FIELDS})
+        {f: np.asarray(getattr(jt, f)) for f in _FIELDS}, device="cpu")
     ref = tcalib.build_tables(
         tcalib.Calibration.from_numpy(*(np.asarray(getattr(jc, f)) for f in
                                         ("cam_k", "pro_k", "rot", "trans"))),
-        96, 160)
+        96, 160, device="cpu")
     for f in _FIELDS:
         np.testing.assert_array_equal(getattr(tt, f).numpy(),
                                       getattr(ref, f).numpy())
@@ -88,7 +88,7 @@ def test_triangulate_xyz_matches_jax(rng, shape):
     h, w = shape
     jc, tc = _calibs(h, w)["synthetic"]
     jt = jcalib.build_tables(jc, h, w)
-    tt = tcalib.build_tables(tc, h, w)
+    tt = tcalib.build_tables(tc, h, w, device="cpu")
     # The projector map of a rendered sphere (a well-conditioned
     # denominator, as every real map has), with a band of holes.
     cfg = SystemConfig(cam_h=h, cam_w=w, pro_h=96, pro_w=640, gray_bits=5)
@@ -130,3 +130,47 @@ def test_yaml_round_trip_across_packages(tmp_path):
     for f in ("cam_k", "pro_k", "rot", "trans"):
         np.testing.assert_array_equal(getattr(from_j, f).numpy(),
                                       np.asarray(getattr(from_t, f)))
+
+
+def _state_arrays(h, w):
+    z = np.zeros((h, w), np.float32)
+    return {"proj_u": z, "strip_w": z, "strip_b": z, "z": z, "frame_idx": 3}
+
+
+def _default_device_calls(tmp_path):
+    """The main path's library entry points that put data on a device,
+    each called without one, and the same call on the CPU."""
+    from slc_tpu_torch.checkpoint import load_state, save_state
+    from slc_tpu_torch.dynamic import TrackerState
+    calib = tcalib.synthetic_calibration(cam_h=24, cam_w=40, pro_h=96,
+                                         pro_w=640)
+    tables = {f: np.asarray(getattr(
+        tcalib.build_tables(calib, 24, 40, device="cpu"), f))
+        for f in _FIELDS}
+    ckpt = save_state(str(tmp_path / "frame_3"), TrackerState.from_numpy(
+        _state_arrays(24, 40), device="cpu"))
+    return {
+        "build_tables": lambda **kw: tcalib.build_tables(calib, 24, 40,
+                                                         **kw).c,
+        "TriangulationTables.from_numpy": lambda **kw:
+            tcalib.TriangulationTables.from_numpy(tables, **kw).c,
+        "TrackerState.from_numpy": lambda **kw: TrackerState.from_numpy(
+            _state_arrays(24, 40), **kw).proj_u,
+        "load_state": lambda **kw: load_state(ckpt, **kw).proj_u,
+    }
+
+
+@pytest.mark.parametrize("entry", ["build_tables",
+                                   "TriangulationTables.from_numpy",
+                                   "TrackerState.from_numpy", "load_state"])
+def test_entry_points_default_to_the_card(tmp_path, entry):
+    """Without a device these entry points go to the card: where there is
+    none they raise instead of falling back to the CPU; ``device="cpu"``
+    builds on the CPU."""
+    call = _default_device_calls(tmp_path)[entry]
+    assert call(device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert call().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

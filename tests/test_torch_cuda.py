@@ -172,6 +172,83 @@ def test_phase_lock_kernel(dev, shape):
         _close(got[i:i + 1], want[i:i + 1], bar)
 
 
+#: The lock's windows: the smallest the wrappers take, the reference's
+#: and the largest, whose shared-memory plan needs more than 48 KB.
+LOCK_WINDOWS = [(3, 3), (21, 9), (63, 63)]
+#: The carrier gate: off (threshold 0), on, and on with the first band's
+#: prediction stretched by 10% so that its gradient exceeds the threshold.
+GATES = ["off", "on", "over"]
+LOCK_BARS = (2e-3, 4e-3, 4e-3, 4e-3)
+
+
+def _lock_close(got, want):
+    """P within 2e-3 off at most 2 isolated arccos tie pixels, each moved
+    by at most T/2 (chip_smoke.py pins up to 32 at 1.3 MP); z, x, y within
+    4e-3 off those pixels."""
+    d = (got[0] - want[0]).abs()
+    flip = d > LOCK_BARS[0]
+    assert int(flip.sum()) <= 2 and float(d.max()) <= 6.0 + LOCK_BARS[0]
+    assert not bool((flip[:-1, :-1] & flip[1:, :-1] & flip[:-1, 1:]
+                     & flip[1:, 1:]).any())
+    keep = ~flip
+    for g, e, bar in zip(got, want, LOCK_BARS):
+        torch.testing.assert_close(g[keep], e[keep], atol=bar, rtol=0)
+
+
+def _gated(p, gate):
+    """``p`` with the first gate band stretched for ``gate`` "over", and
+    the gate's threshold."""
+    if gate == "over":
+        p = p.clone()
+        p[:64] *= 1.1
+    return p, 0.0 if gate == "off" else 2e-3
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("win_u,win_v", LOCK_WINDOWS)
+@pytest.mark.parametrize("gate", GATES)
+def test_lock_windows_and_gate(dev, shape, win_u, win_v, gate):
+    """The standalone lock against its plain version, with a hole band
+    (P = 0, never corrected); a band over the gate's threshold is left
+    as predicted by both."""
+    cfg, calib, tables = _setup(*shape, dev)
+    frames, _, pu_gt = synth.render_dynamic_sequence(
+        calib, cfg, 2, stripe_period=12, noise_sigma=1.0)
+    pred, thresh = _gated(
+        torch.from_numpy(pu_gt[1].astype(np.float32) + 1.3).to(dev), gate)
+    pred[:, 40:48] = 0.0
+    f = torch.from_numpy(frames[1]).to(dev)
+    kw = dict(period=12.0, win_u=win_u, win_v=win_v,
+              max_carrier_gradient=thresh, fov_min=cfg.fov_min,
+              fov_max=cfg.fov_max)
+    got = kpl.phase_lock_cuda(f, pred, tables, **kw)
+    want = kpl.phase_lock_ref(f, pred, tables, **kw)
+    _lock_close(got, want)
+    assert bool((got[0][:, 40:48] == 0).all())
+    if gate == "over":
+        assert torch.equal(got[0][:64], pred[:64])
+        assert torch.equal(want[0][:64], pred[:64])
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("win_u,win_v", LOCK_WINDOWS)
+@pytest.mark.parametrize("gate", GATES)
+def test_locked_step_windows_and_gate(dev, shape, win_u, win_v, gate):
+    """The locked step against its plain version, with a hole band in the
+    carried P."""
+    cfg, (f1, sw, sb, pu, tables) = _step_args(shape, dev)
+    pu, thresh = _gated(pu, gate)
+    pu[:, 40:48] = 0.0
+    kw = dict(window=cfg.reco_window, fov_min=cfg.fov_min,
+              fov_max=cfg.fov_max, period=12.0, win_u=win_u, win_v=win_v,
+              max_carrier_gradient=thresh)
+    args = (f1, sw, sb, pu, tables)
+    got = kstep.dynamic_step_lock_cuda(*args, **kw)
+    want = kstep.dynamic_step_lock_ref(*args, **kw)
+    _close(got[1:3], want[1:3], 1e-5)
+    _lock_close(got[:1] + got[3:], want[:1] + want[3:])
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("frac_bits", [0, 7])
 def test_two_kernel_locked_step_equals_fused(dev, shape, frac_bits):
@@ -242,8 +319,8 @@ def test_ablate_and_device_time(dev):
         return                      # CUPTI denied: the call time only
     alone = devtime.device_time_s(step, n=3, match="")
     assert 0 < alone < call
-    for name in ("track_kernel", "row_tri_kernel", "col_tri_kernel",
-                 "finish_kernel", "snap_kernel"):
+    for name in ("track_kernel", "lock_dc_kernel", "lock_corr_kernel",
+                 "snap_kernel"):
         assert 0 < devtime.device_time_s(step, n=3, match=name) < alone
 
 

@@ -31,7 +31,7 @@ def _scene(h, w):
     scene = jsynth.render_static_scene(jc, jcfg, jsynth.sphere_surface(),
                                        noise_sigma=1.0)
     return (jcfg, cfg, jcalib.build_tables(jc, h, w),
-            tcalib.build_tables(tc, h, w), scene)
+            tcalib.build_tables(tc, h, w, device="cpu"), scene)
 
 
 def _assert_decode(got, want_x, want_y, want_z, want_pu):

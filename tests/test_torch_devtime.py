@@ -1,8 +1,9 @@
 """slc_tpu_torch.devtime: device timing raises without a CUDA device (it
 never falls back to a wall clock), a profiler that records no CUDA
-kernel raises ProfilerUnavailable, and the HBM peak table knows the H100
-by the name nvidia-smi reports. The timing itself runs on the card
-(tests/test_torch_cuda.py, chip_smoke.py)."""
+kernel raises ProfilerUnavailable, the peak tables know the H100 by the
+name nvidia-smi reports, and count_ops counts a call's arithmetic. The
+timing itself runs on the card (tests/test_torch_cuda.py,
+chip_smoke.py)."""
 
 import pytest
 import torch
@@ -42,3 +43,25 @@ def test_profiler_without_records_raises(monkeypatch):
 
 def test_hbm_peak_by_card_name():
     assert devtime.HBM_PEAK_GBPS["NVIDIA H100 80GB HBM3"] == 3350.0
+    assert devtime.F32_PEAK_TFLOPS["NVIDIA H100 80GB HBM3"] == 67.0
+
+
+_X = torch.arange(12, dtype=torch.float32).reshape(3, 4)
+
+
+@pytest.mark.parametrize("fn,ops", [
+    # Pointwise: one per output element, in place too.
+    (lambda: (_X + 1.0) * 2.0, 24),
+    (lambda: torch.where(_X > 3.0, torch.sin(_X), _X), 36),
+    (lambda: _X.clone().add_(1.0), 12),
+    # Reductions and scans: one per input element.
+    (lambda: _X.sum(), 12),
+    (lambda: _X.amax(dim=1), 12),
+    (lambda: torch.cumsum(_X, dim=1), 12),
+    # Views, copies, conversions, creation and indexing: none.
+    (lambda: _X.t().reshape(4, 3)[1:, :2].contiguous(), 0),
+    (lambda: (_X.to(torch.uint8), torch.zeros(5), torch.cat([_X, _X]),
+              torch.roll(_X, 1, 0)), 0),
+])
+def test_count_ops(fn, ops):
+    assert devtime.count_ops(fn) == ops

@@ -39,9 +39,10 @@ def _setup(h, w):
     jst = j_init(jnp.asarray(frames[0]), jnp.asarray(pu_gt[0], jnp.float32),
                  jnp.asarray(z_gt[0], jnp.float32), jcfg, use_pallas=False)
     st = TrackerState.from_numpy({k: np.asarray(getattr(jst, k))
-                                  for k in _STATE})
+                                  for k in _STATE}, device="cpu")
     return (jcfg, cfg, jcalib.build_tables(jc, h, w),
-            tcalib.build_tables(tc, h, w), frames, jst, st)
+            tcalib.build_tables(tc, h, w, device="cpu"), frames, jst,
+            st)
 
 
 def _copy(jst):
@@ -163,7 +164,7 @@ def test_run_sequence_matches_jax():
     jst = j_init(jnp.asarray(frames[0]), jnp.asarray(pu_gt[0], jnp.float32),
                  jnp.asarray(z_gt[0], jnp.float32), jcfg, use_pallas=False)
     st = TrackerState.from_numpy({k: np.asarray(getattr(jst, k))
-                                  for k in _STATE})
+                                  for k in _STATE}, device="cpu")
     kw = dict(phase_lock=12.0, lock_win_u=21, lock_win_v=9)
     jfin, jres = j_run_sequence(jst, jnp.asarray(frames[1:]), jt, jcfg, **kw)
     fin, res = run_sequence(st, torch.from_numpy(frames[1:]), tt, cfg, **kw)

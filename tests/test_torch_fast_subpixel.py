@@ -88,7 +88,7 @@ def _step_setup(h, w):
         "proj_u": pu_gt[0], "z": z_gt[0], "frame_idx": 0,
         **dict(zip(("strip_w", "strip_b"), (
             a.numpy() for a in kstripe.stripe_regression(
-                torch.from_numpy(frames[0]), 21))))})
+                torch.from_numpy(frames[0]), 21))))}, device="cpu")
     jt = jcalib.build_tables(jc, h, w)
     scal = jnp.stack([jt.a, jt.b, jt.fx, jt.fy, jt.cx, jt.cy,
                       jnp.float32(jcfg.fov_min),
@@ -98,7 +98,7 @@ def _step_setup(h, w):
              jt.c, jt.d, scal)
     tc = tcalib.synthetic_calibration(cam_h=h, cam_w=w, pro_h=96, pro_w=640)
     cfg = SystemConfig(cam_h=h, cam_w=w, pro_h=96, pro_w=640, gray_bits=5)
-    return cfg, st, tcalib.build_tables(tc, h, w), frames[1], jargs
+    return cfg, st, tcalib.build_tables(tc, h, w, device="cpu"), frames[1], jargs
 
 
 def _check_step(new, res, want, frame):

@@ -69,7 +69,7 @@ def _scene(h, w):
         jc, jcfg, jsynth.sphere_surface(), het.periods(PRO_W),
         het.phase_steps, noise_sigma=1.0)
     return (jcfg, cfg, jcalib.build_tables(jc, h, w),
-            tcalib.build_tables(tc, h, w), imgs)
+            tcalib.build_tables(tc, h, w, device="cpu"), imgs)
 
 
 def _assert_parity(got, x, y, z, pu):

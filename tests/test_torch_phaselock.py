@@ -37,8 +37,8 @@ def _setup(h, w):
         jc, jcfg, 2, stripe_period=int(PERIOD), noise_sigma=1.0)
     pred = np.asarray(pu_gt[1] + 1.3, np.float32)
     pred[:, 40:48] = 0.0                  # a hole band stays a hole
-    return (jcfg, jcalib.build_tables(jc, h, w), tcalib.build_tables(tc, h, w),
-            frames[1], pred)
+    return (jcfg, jcalib.build_tables(jc, h, w),
+            tcalib.build_tables(tc, h, w, device="cpu"), frames[1], pred)
 
 
 def _pallas(jcfg, jt, frame, pred, period, win_u):

@@ -233,7 +233,7 @@ def test_decode_spatial_frame_matches_jax():
                     jcfg, period, anchor=jnp.asarray(pu_gt, jnp.float32),
                     unwrap_iters=500)
     got = decode_spatial_frame(torch.from_numpy(imgs),
-                               tcalib.build_tables(tc, 96, 160), cfg, period,
+                               tcalib.build_tables(tc, 96, 160, device="cpu"), cfg, period,
                                anchor=_t(pu_gt), unwrap_iters=500)
     inner = (slice(1, -1), slice(1, -1))
     _close(got.proj_u.numpy(), want.proj_u, 1e-3)

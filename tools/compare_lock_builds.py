@@ -1,0 +1,158 @@
+#!/usr/bin/env python3
+"""Compare the lock launches of this checkout's kernel library with those
+of another checkout of slc_tpu_torch, on one CUDA card.
+
+    python3 tools/compare_lock_builds.py OTHER_CHECKOUT
+
+``OTHER_CHECKOUT`` is the root of another tree of the repo (for example
+the parent commit, unpacked with ``git archive``); its kernels are built
+from its own ``slc_tpu_torch/kernels/csrc`` into its own build directory.
+Both libraries are driven through this checkout's wrappers (their C
+interface is the same), at chip_smoke.py's two shapes, 1024x1280 and
+1000x1270:
+
+1. bit for bit: the locked step (``frac_bits`` 0 and 7) and the
+   standalone lock on the open-loop step's P with a hole band, at the
+   suggested lock window and at windows (3, 3) and (63, 63), with the gate
+   on and off; every output map must be equal;
+2. at 1024x1280, the kernels-alone device time of the locked step, of
+   the step up to the lock's DC (``ablate="dc"``: track and the DC
+   launches) and of the standalone lock (``devtime.graph_time_s``, 20
+   calls in one CUDA graph), the two libraries in turns (other, this,
+   this, other).
+
+Exits non-zero if any map differs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import importlib.util
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from slc_tpu_torch import devtime, synth  # noqa: E402
+from slc_tpu_torch.calib import build_tables, synthetic_calibration  # noqa
+from slc_tpu_torch.config import REFERENCE_CONFIG  # noqa: E402
+from slc_tpu_torch.kernels import _build  # noqa: E402
+from slc_tpu_torch.kernels import dynamic_step as kstep  # noqa: E402
+from slc_tpu_torch.kernels import phaselock as kpl  # noqa: E402
+from slc_tpu_torch.kernels import stripe as kstripe  # noqa: E402
+from slc_tpu_torch.ops.demod import suggest_lock_window  # noqa: E402
+
+SHAPES = ((1024, 1280), (1000, 1270))
+LOCK_T = 12.0
+
+
+def other_library(root: str):
+    """The kernel library of the checkout at ``root``, built by that
+    checkout's own ``_build`` module."""
+    path = os.path.join(root, "slc_tpu_torch", "kernels", "_build.py")
+    spec = importlib.util.spec_from_file_location("other_build", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.lib()
+
+
+def using(lib, fn):
+    """``fn`` with this checkout's wrappers calling ``lib``."""
+    def call():
+        saved, _build._lib = _build._lib, lib
+        try:
+            return fn()
+        finally:
+            _build._lib = saved
+    return call
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other", help="root of the other checkout")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("compare_lock_builds: CUDA is not available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader", "--id=0"], check=True,
+                          capture_output=True, text=True).stdout.strip()
+    print(card, flush=True)
+    libs = {"this": _build.lib(), "other": other_library(args.other)}
+    n_maps = n_diff = 0
+    for h, w in SHAPES:
+        cfg = dataclasses.replace(REFERENCE_CONFIG, cam_h=h, cam_w=w)
+        calib = synthetic_calibration(cam_h=h, cam_w=w, pro_h=cfg.pro_h,
+                                      pro_w=cfg.pro_w)
+        tables = build_tables(calib, h, w, dev)
+        frames, _, pu_gt = synth.render_dynamic_sequence(
+            calib, cfg, 2, z0=50.0, dz_per_frame=0.3,
+            stripe_period=int(LOCK_T), noise_sigma=1.0)
+        f0, f1 = (torch.from_numpy(f).to(dev) for f in frames)
+        pu0 = torch.from_numpy(pu_gt[0].astype(np.float32)).to(dev)
+        sw0, sb0 = kstripe.stripe_regression_ref(f0, cfg.reco_window)
+        step_args = (f1, sw0, sb0, pu0, tables)
+        kw = dict(window=cfg.reco_window, fov_min=cfg.fov_min,
+                  fov_max=cfg.fov_max)
+        pred = kstep.dynamic_step_open_cuda(*step_args, **kw)[0].clone()
+        pred[:, 40:48] = 0.0
+        win = suggest_lock_window(pu_gt[0], LOCK_T)
+        cases = {}
+        for wu, wv in sorted({(win, 9), (3, 3), (63, 63)}):
+            for thresh in (2e-3, 0.0):
+                lk = dict(period=LOCK_T, win_u=wu, win_v=wv,
+                          max_carrier_gradient=thresh)
+                for frac in (0, 7):
+                    cases[f"step win ({wu}, {wv}) gate {thresh:g} frac "
+                          f"{frac}"] = (
+                        lambda lk=lk, frac=frac: kstep.dynamic_step_lock_cuda(
+                            *step_args, **kw, **lk, frac_bits=frac))
+                cases[f"lock win ({wu}, {wv}) gate {thresh:g}"] = (
+                    lambda lk=lk: kpl.phase_lock_cuda(
+                        f1, pred, tables, **lk, fov_min=cfg.fov_min,
+                        fov_max=cfg.fov_max))
+        for name, fn in cases.items():
+            a = using(libs["other"], fn)()
+            b = using(libs["this"], fn)()
+            diff = [i for i, (x, y) in enumerate(zip(a, b))
+                    if not torch.equal(x, y)]
+            n_maps += len(a)
+            n_diff += len(diff)
+            print(f"{h}x{w} {name}: "
+                  + ("bit-identical" if not diff else f"DIFFER in maps "
+                     f"{diff}, max|diff| " + ", ".join(
+                         f"{float((a[i] - b[i]).abs().max()):.3e}"
+                         for i in diff)), flush=True)
+        if (h, w) == SHAPES[0]:
+            lk = dict(period=LOCK_T, win_u=win, win_v=9)
+            timed = {
+                "locked step": lambda: kstep.dynamic_step_lock_cuda(
+                    *step_args, **kw, **lk),
+                "locked step to DC": lambda: kstep.dynamic_step_lock_cuda(
+                    *step_args, **kw, **lk, ablate="dc"),
+                "standalone lock": lambda: kpl.phase_lock_cuda(
+                    f1, pred, tables, **lk, fov_min=cfg.fov_min,
+                    fov_max=cfg.fov_max)}
+            for name, fn in timed.items():
+                t = {k: [] for k in libs}
+                for k in ("other", "this", "this", "other"):
+                    t[k].append(1e3 * devtime.graph_time_s(using(libs[k],
+                                                                 fn)))
+                print(f"time {name} at {h}x{w}, kernels alone (graph of "
+                      f"20), this vs other: {sum(t['this']) / 2:.4f} ms "
+                      f"({t['this'][0]:.4f}, {t['this'][1]:.4f}) vs "
+                      f"{sum(t['other']) / 2:.4f} ms ({t['other'][0]:.4f}, "
+                      f"{t['other'][1]:.4f})", flush=True)
+    print(f"{n_maps - n_diff} of {n_maps} maps bit-identical on {card}")
+    return 1 if n_diff else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
