@@ -25,7 +25,10 @@ Run from the root of a checkout. In order it:
    captured back to back in one CUDA graph, the mean over 3 replays
    queued behind a spin kernel); the fast sub-pixel
    kernels; the two-kernel vs the fused locked step; the locked step's
-   stages (``ablate``). Where ``torch.profiler`` records CUDA kernels
+   stages (``ablate``); the open-loop and locked steps cold, their inputs
+   and outputs rotated over COLD_SETS sets (``devtime.rotating``, over
+   twice the card's 50 MB L2), beside their L2-resident times. Where
+   ``torch.profiler`` records CUDA kernels
    (CUPTI tracing may be denied), also the plain versions' kernels alone
    and the locked step by launch, from its records; where it does not,
    those lines say "not measured". Then one roofline line per kernel
@@ -128,6 +131,9 @@ BARS = {
 LOCK_OUT = ("proj_u", "z", "x", "y")
 #: Device timing: calls per timed function (devtime's defaults).
 TIME_N, TIME_WARMUP = 20, 3
+#: Input sets of the cold step timings: a frame, three carried maps and
+#: six outputs each, ~291 MB in all at 1024x1280.
+COLD_SETS = 6
 #: Bytes each kernel must move per pixel (PERF.md section 3); the floors
 #: move those of the kernel whose pattern they read.
 BYTES_PER_PX = {"grayphase": 32, "stripe": 9, "dynamic_step_lock": 37,
@@ -522,6 +528,20 @@ def timing(inputs, card, use_profiler=True):
                           ("corr", "+ C/S and correction"), ("", "all"))}
     log("locked step stages, cumulative device ms (graph): "
         + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
+
+    # The steps cold: every call reads its inputs and writes its outputs
+    # in device memory, as a stream of frames does, not in L2.
+    sets = [tuple(a.clone() for a in args[:4]) + (tables,)
+            for _ in range(COLD_SETS)]
+    for name, step in (
+            ("dynamic_step", lambda a: kstep.dynamic_step_open_cuda(*a, **kw)),
+            ("dynamic_step_lock",
+             lambda a: kstep.dynamic_step_lock_cuda(*a, **lk))):
+        cold = alone_ms(devtime.rotating(step, sets), name)
+        log(f"time {name} at 1024x1280, kernels alone (graph): L2-resident "
+            f"{out[name][2]:.4f} ms, cold {cold:.4f} ms (inputs and outputs "
+            f"rotated over {COLD_SETS} sets)")
+    del sets
     launches = {k: dev_ms(fused_step, "dynamic_step_lock", match=k)
                 for k in ("track_kernel", "lock_dc_kernel",
                           "lock_corr_kernel", "snap_kernel")}

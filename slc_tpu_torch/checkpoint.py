@@ -5,6 +5,9 @@ The carried state is tiny and explicit (TrackerState: P, stripW, stripB,
 z, frame_idx), so any frame is a resume point. Checkpoints are npz files
 with slc_tpu's field names (checkpoint.py:29), written through an atomic
 rename: an npz checkpoint either package wrote resumes in the other.
+slc_tpu writes npz only without orbax; with orbax it writes a directory
+(OCDBT), which the port does not read (that needs orbax or tensorstore):
+:func:`load_state` raises a ValueError naming it.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import numpy as np
 from slc_tpu_torch.dynamic import TrackerState
 
 _FIELDS = ("proj_u", "strip_w", "strip_b", "z", "frame_idx")
+#: Files by which an orbax checkpoint directory is recognised.
+_ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "manifest.ocdbt")
 
 
 def save_state(path: str, state: TrackerState) -> str:
@@ -36,6 +41,12 @@ def load_state(path: str, device="cuda") -> TrackerState:
     says otherwise (a CUDA device without CUDA raises)."""
     if not path.endswith(".npz") and os.path.exists(path + ".npz"):
         path = path + ".npz"
+    if os.path.isdir(path) and any(
+            os.path.exists(os.path.join(path, m)) for m in _ORBAX_MARKERS):
+        raise ValueError(
+            f"{path} is an orbax checkpoint, which slc_tpu_torch cannot "
+            f"read: write npz checkpoints with slc_tpu (orbax not "
+            f"installed, or slc_tpu.checkpoint._HAVE_ORBAX = False)")
     with np.load(path) as f:
         return TrackerState.from_numpy({k: f[k] for k in _FIELDS}, device)
 

@@ -23,8 +23,9 @@ dispatches, the operations side of a roofline bound; it runs anywhere.
 
 from __future__ import annotations
 
+import itertools
 import warnings
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -205,3 +206,23 @@ def graph_time_s(fn: Callable[[], object], n: int = 20,
                                f"{_REPLAYS} replays within a {cycles}-cycle "
                                "spin")
         cycles <<= 2
+
+
+def rotating(fn: Callable[[object], object],
+             sets: Sequence) -> Callable[[], object]:
+    """A function of no arguments that calls ``fn`` on ``sets[0]``,
+    ``sets[1]``, ... in turn. Each result is held until its set comes
+    round again and then freed just before the call that replaces it, so
+    the caching allocator gives that call the same output memory: the
+    inputs and outputs cycle through ``len(sets)`` places. Timed with
+    :func:`graph_time_s` over sets whose bytes exceed the card's L2
+    cache, ``fn`` reads and writes device memory, not L2 ("cold")."""
+    held = [None] * len(sets)
+    turn = itertools.count()
+
+    def call():
+        k = next(turn) % len(sets)
+        held[k] = None
+        held[k] = fn(sets[k])
+        return held[k]
+    return call

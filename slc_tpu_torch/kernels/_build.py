@@ -8,6 +8,11 @@ so the package imports on a machine without ``nvcc``. The library lands
 in ``kernels/build/`` under a name keyed by a hash of the sources and
 flags, so editing a source rebuilds it. A failed build raises with
 nvcc's stderr: there is no fallback.
+
+Every kernel launch goes through :func:`launch`, which enters
+``torch.cuda.device`` of the tensors' device around the C call: the C
+functions launch with ``<<<...>>>`` and set function attributes on the
+calling thread's current device, so that device must be the tensors'.
 """
 
 from __future__ import annotations
@@ -101,8 +106,8 @@ def sources() -> list:
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
 
 
-def _library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _library_path(flags) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for p in sorted(glob.glob(os.path.join(_CSRC, "*.cu*"))):
         h.update(os.path.basename(p).encode())
         with open(p, "rb") as f:
@@ -115,11 +120,14 @@ def _nvcc_error(cmd, proc_rc, stderr) -> RuntimeError:
                         f"{stderr}")
 
 
-def build() -> str:
+def build(extra=()) -> str:
     """Compile the library if no build of the current sources exists;
     return its path. One nvcc per source, all started together, then one
-    link. Raises RuntimeError with nvcc's stderr on failure."""
-    path = _library_path()
+    link. ``extra`` nvcc flags (profiling builds of ``tools/``, such as
+    ``-DSLC_TRACK_STOP=1``) give a library of their own. Raises
+    RuntimeError with nvcc's stderr on failure."""
+    flags = (*NVCC_FLAGS, *extra)
+    path = _library_path(flags)
     if os.path.exists(path):
         return path
     os.makedirs(_BUILD, exist_ok=True)
@@ -129,7 +137,7 @@ def build() -> str:
     procs = []
     try:
         for src, obj in zip(sources(), objs):
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            cmd = [nvcc, *flags, "-c", "-o", obj, src]
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
@@ -137,7 +145,7 @@ def build() -> str:
             _, err = proc.communicate()
             if proc.returncode != 0:
                 raise _nvcc_error(cmd, proc.returncode, err)
-        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        cmd = [nvcc, *flags, "-shared", "-o", tmp, *objs]
         link = subprocess.run(cmd, capture_output=True, text=True)
         if link.returncode != 0:
             raise _nvcc_error(cmd, link.returncode, link.stderr)
@@ -153,22 +161,37 @@ def build() -> str:
     return path
 
 
+def load(path: str) -> ctypes.CDLL:
+    """The kernel library at ``path``, its C signatures declared."""
+    l = ctypes.CDLL(path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(l, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    l.slc_error_string.argtypes = [_i]
+    l.slc_error_string.restype = ctypes.c_char_p
+    l.slc_dynamic_step_lock_scratch.argtypes = [_i, _i, _i]
+    l.slc_dynamic_step_lock_scratch.restype = ctypes.c_long
+    return l
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
     with _lock:
         if _lib is None:
-            l = ctypes.CDLL(build())
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(l, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            l.slc_error_string.argtypes = [_i]
-            l.slc_error_string.restype = ctypes.c_char_p
-            l.slc_dynamic_step_lock_scratch.argtypes = [_i, _i, _i]
-            l.slc_dynamic_step_lock_scratch.restype = ctypes.c_long
-            _lib = l
+            _lib = load(build())
         return _lib
+
+
+def launch(name: str, device, *args) -> None:
+    """Call the C entry point ``name`` with ``args`` and the current
+    stream of the CUDA ``device`` (the tensors' device), under
+    ``torch.cuda.device(device)``; raise if it returned an error."""
+    fn = getattr(lib(), name)
+    with torch.cuda.device(device):
+        err = fn(*args, stream_of(device))
+    check(err, name)
 
 
 def check(err: int, name: str) -> None:

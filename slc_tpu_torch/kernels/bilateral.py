@@ -41,10 +41,9 @@ def bilateral_filter_cuda(img: torch.Tensor, sigma_color: float = 10.0,
     _build.require(img, "img", torch.float32, (h, w), dev)
     out = torch.empty((h, w), dtype=torch.float32, device=dev)
     inv2sc, inv2ss = filters.bilateral_constants(sigma_color, sigma_space)
-    err = _build.lib().slc_bilateral(img.data_ptr(), out.data_ptr(), h, w,
-                                     inv2sc, inv2ss, _build.stream_of(dev))
+    _build.launch("slc_bilateral", dev, img.data_ptr(), out.data_ptr(), h,
+                  w, inv2sc, inv2ss)
     bilateral_filter_cuda.launches += 1
-    _build.check(err, "slc_bilateral")
     return out
 
 

@@ -8,6 +8,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 // Triangulation constants, in the order of the host float[14] the Python
@@ -73,6 +74,161 @@ __device__ __forceinline__ void box_sums_tile(const uint8_t* frame, int h,
   }
 }
 
+// Stage ``ntiles`` windows of an (h, w) image of T into shared memory,
+// side by side in the image and one after another in ``dst``: window t
+// holds rows [gy0, gy0 + rows) and columns [xa + t * dx, ... + E *
+// nchunk), dst[t * tile_elems + rr * pitch + c] the pixel at row gy0 + rr,
+// column xa + t * dx + c, 0 outside the image. E = 16 / sizeof(T)
+// elements make a 16-byte chunk; xa, dx, pitch and tile_elems are
+// multiples of E, dst is 16-byte aligned. A chunk inside the image is
+// one 16-byte load when ``vec`` (w a multiple of E and img 16-byte
+// aligned); any other chunk is read one element at a time, so a ragged
+// width stages exactly. Each thread issues the loads of kStageBatch
+// chunks before it stores them. All threads of the block take part; the
+// caller synchronizes afterwards.
+constexpr int kStageBatch = 4;
+
+template <typename T>
+__device__ __forceinline__ uint4 load_chunk(const T* __restrict__ img,
+                                            int h, int w, bool vec, int gy,
+                                            int gx) {
+  constexpr int E = 16 / sizeof(T);
+  union {
+    uint4 u;
+    T e[E];
+  } c;
+  const bool row_in = gy >= 0 && gy < h;
+  const T* src = img + (size_t)(row_in ? gy : 0) * w;
+  if (vec && row_in && gx >= 0 && gx + E <= w)
+    return __ldg(reinterpret_cast<const uint4*>(src + gx));
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int x = gx + e;
+    c.e[e] = row_in && x >= 0 && x < w ? src[x] : T(0);
+  }
+  return c.u;
+}
+
+template <typename T>
+__device__ __forceinline__ void stage_tiles(const T* __restrict__ img,
+                                            int h, int w, bool vec, int gy0,
+                                            int rows, int xa, int nchunk,
+                                            int ntiles, int dx, T* dst,
+                                            int pitch, int tile_elems) {
+  constexpr int E = 16 / sizeof(T);
+  const int nt = blockDim.x * blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int per_tile = rows * nchunk, n = ntiles * per_tile;
+  for (int q0 = tid; q0 < n; q0 += kStageBatch * nt) {
+    uint4 v[kStageBatch];
+    int at[kStageBatch];
+#pragma unroll
+    for (int b = 0; b < kStageBatch; ++b) {
+      const int q = q0 + b * nt;
+      at[b] = -1;
+      if (q < n) {
+        const int t = q / per_tile, i = q - t * per_tile;
+        const int rr = i / nchunk, ch = i - rr * nchunk;
+        v[b] = load_chunk(img, h, w, vec, gy0 + rr, xa + t * dx + E * ch);
+        at[b] = t * tile_elems + rr * pitch + E * ch;
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kStageBatch; ++b)
+      if (at[b] >= 0) *reinterpret_cast<uint4*>(dst + at[b]) = v[b];
+  }
+}
+
+// Allow a kernel more than the default 48 KB of dynamic shared memory
+// when asked (on the current device: the wrappers enter the tensors').
+template <typename K>
+static inline cudaError_t fit_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+// Interior-masked vertical box sums from a staged frame window, as
+// box_sums_tile computes them from device memory: vs[rr * pv + cc] = the
+// sum of frame rows [gy - r, gy + r] at column gx, gy = y0 + rr, gx = xs +
+// cc, or 0 unless r <= gy < h - r and r <= gx < w - r. The window ``f``
+// holds global row y0 - r + i in its row i and column xs + cc at f[i *
+// fpitch + off + cc]. Each work item is a column and a segment of
+// kBoxSeg rows: one direct sum, then a running one; integers, so exact in
+// any order. All threads of the block take part; the caller synchronizes
+// afterwards.
+constexpr int kBoxSeg = 17;
+
+__device__ __forceinline__ void box_sums_smem(const uint8_t* f, int fpitch,
+                                              int off, int h, int w, int r,
+                                              int y0, int nrows, int xs,
+                                              int ncols, int* vs, int pv) {
+  const int nt = blockDim.x * blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nseg = (nrows + kBoxSeg - 1) / kBoxSeg;
+  for (int q = tid; q < ncols * nseg; q += nt) {
+    const int sg = q / ncols, cc = q - sg * ncols;
+    const int gx = xs + cc;
+    const bool col_in = gx >= r && gx < w - r;
+    const int e0 = sg * kBoxSeg, e1 = min(e0 + kBoxSeg, nrows);
+    const uint8_t* fc = f + off + cc;
+    int sum = 0;
+    for (int k = 0; k <= 2 * r; ++k) sum += fc[(e0 + k) * fpitch];
+    for (int rr = e0;;) {
+      const int gy = y0 + rr;
+      vs[rr * pv + cc] = col_in && gy >= r && gy < h - r ? sum : 0;
+      if (++rr == e1) break;
+      sum += fc[(rr + 2 * r) * fpitch] - fc[(rr - 1) * fpitch];
+    }
+  }
+}
+
+// The extrema of K neighbouring windows at once: for m in [0, K),
+// kmax[m] and kmin[m] are the max and min over j in [m, m + L) of the keys
+// (x[j] << 8) | (255 - j) and (x[j] << 8) | j, x[j] >= 0 and below 2^23,
+// j < 256. The value is key >> 8; of equal values the max key holds the
+// leftmost j, and so does the min key. Each tap is loaded once: the taps
+// [m, K - 1) by a suffix pass, [K - 1, L) shared by every window, [L, L +
+// m) by a prefix pass. Needs L >= K - 1.
+template <int K>
+__device__ __forceinline__ void window_extrema(const int* x, int L,
+                                               int (&kmax)[K],
+                                               int (&kmin)[K]) {
+  int amax[K - 1], amin[K - 1];
+#pragma unroll
+  for (int j = 0; j < K - 1; ++j) {
+    const int v = x[j] << 8;
+    amax[j] = v | (255 - j);
+    amin[j] = v | j;
+  }
+#pragma unroll
+  for (int j = K - 3; j >= 0; --j) {
+    amax[j] = max(amax[j], amax[j + 1]);
+    amin[j] = min(amin[j], amin[j + 1]);
+  }
+  int mmax = INT_MIN, mmin = INT_MAX;
+  for (int j = K - 1; j < L; ++j) {
+    const int v = x[j] << 8;
+    mmax = max(mmax, v | (255 - j));
+    mmin = min(mmin, v | j);
+  }
+  int bmax = INT_MIN, bmin = INT_MAX;
+#pragma unroll
+  for (int m = 0; m < K; ++m) {
+    int omax = max(mmax, bmax), omin = min(mmin, bmin);
+    if (m < K - 1) {
+      omax = max(omax, amax[m]);
+      omin = min(omin, amin[m]);
+      const int j = L + m, v = x[j] << 8;
+      bmax = max(bmax, v | (255 - j));
+      bmin = min(bmin, v | j);
+    }
+    kmax[m] = omax;
+    kmin[m] = omin;
+  }
+}
+
 // Parabola through (idx-1, vm), (idx, v0), (idx+1, vp): offset fraction
 // clamped to +-0.5 (slc_tpu/ops/stripe.py:111-118).
 __device__ __forceinline__ float parabola(int vm, int v0, int vp) {
@@ -112,6 +268,35 @@ __device__ __forceinline__ void extrema_px(const int* vs_row, int c, int r,
   if (subpixel) {
     float pmax = parabola(vs_row[c + imax - 1], bmax, vs_row[c + imax + 1]);
     float pmin = parabola(vs_row[c + imin - 1], bmin, vs_row[c + imin + 1]);
+    if (fbits > 0) {
+      if (imax != 0) pmax = quantize_frac(pmax, fbits);
+      if (imin != 0) pmin = quantize_frac(pmin, fbits);
+    }
+    fmax += pmax;
+    fmin += pmin;
+  }
+  *sw = fmax;
+  *sb = fmin;
+}
+
+// extrema_px from the keys of window_extrema for the window centred on
+// x[c] (taps x[c - r .. c + r - 1], so j - c is the offset): the max
+// updates only on a strict increase from the centre value, so its offset
+// is that of the leftmost maximum if it exceeds the centre, else 0; the
+// same for the min. The sub-pixel fraction and its quantization follow
+// extrema_px exactly.
+__device__ __forceinline__ void extrema_from_keys(const int* x, int c,
+                                                  int kmax, int kmin,
+                                                  bool subpixel, int fbits,
+                                                  float* sw, float* sb) {
+  const int v0 = x[c];
+  const int bmax = kmax >> 8, bmin = kmin >> 8;
+  const int imax = bmax > v0 ? 255 - (kmax & 255) - c : 0;
+  const int imin = bmin < v0 ? (kmin & 255) - c : 0;
+  float fmax = (float)imax, fmin = (float)imin;
+  if (subpixel) {
+    float pmax = parabola(x[c + imax - 1], bmax, x[c + imax + 1]);
+    float pmin = parabola(x[c + imin - 1], bmin, x[c + imin + 1]);
     if (fbits > 0) {
       if (imax != 0) pmax = quantize_frac(pmax, fbits);
       if (imin != 0) pmin = quantize_frac(pmin, fbits);

@@ -148,14 +148,12 @@ def dynamic_step_open_cuda(frame: torch.Tensor, prev_sw: torch.Tensor,
     fbits = fast_frac_bits(frac_bits, window, w, subpixel)
     pu, sw, sb, z, x, y = out = _empty_maps(h, w, dev)
     tri = _build.tri_array(tables.coeffs, fov_min, fov_max)
-    err = _build.lib().slc_dynamic_step(
-        frame.data_ptr(), prev_sw.data_ptr(), prev_sb.data_ptr(),
-        prev_pu.data_ptr(), pu.data_ptr(), sw.data_ptr(), sb.data_ptr(),
-        z.data_ptr(), x.data_ptr(), y.data_ptr(), h, w, window,
-        int(subpixel), fbits, int(scale_gradient), int(robust), tri,
-        _build.stream_of(dev))
+    _build.launch(
+        "slc_dynamic_step", dev, frame.data_ptr(), prev_sw.data_ptr(),
+        prev_sb.data_ptr(), prev_pu.data_ptr(), pu.data_ptr(), sw.data_ptr(),
+        sb.data_ptr(), z.data_ptr(), x.data_ptr(), y.data_ptr(), h, w,
+        window, int(subpixel), fbits, int(scale_gradient), int(robust), tri)
     dynamic_step_open_cuda.launches += 1
-    _build.check(err, "slc_dynamic_step")
     return out
 
 
@@ -233,16 +231,15 @@ def dynamic_step_lock_cuda(frame: torch.Tensor, prev_sw: torch.Tensor,
     pu, sw, sb, z, x, y = out = _empty_maps(h, w, dev)
     scratch, wu, wv = lock_buffers(h, w, win_u, win_v, dev)
     tri = _build.tri_array(tables.coeffs, fov_min, fov_max)
-    err = _build.lib().slc_dynamic_step_lock(
-        frame.data_ptr(), prev_sw.data_ptr(), prev_sb.data_ptr(),
-        prev_pu.data_ptr(), pu.data_ptr(), sw.data_ptr(), sb.data_ptr(),
-        z.data_ptr(), x.data_ptr(), y.data_ptr(), scratch.data_ptr(),
-        wu.data_ptr(), wv.data_ptr(), h, w, window, int(subpixel), fbits,
-        int(scale_gradient), int(robust), float(period), win_u, win_v,
-        float(amp_floor), *gate_args(max_carrier_gradient), GATE_BAND,
-        _ABLATE[ablate], tri, _build.stream_of(dev))
+    _build.launch(
+        "slc_dynamic_step_lock", dev, frame.data_ptr(), prev_sw.data_ptr(),
+        prev_sb.data_ptr(), prev_pu.data_ptr(), pu.data_ptr(), sw.data_ptr(),
+        sb.data_ptr(), z.data_ptr(), x.data_ptr(), y.data_ptr(),
+        scratch.data_ptr(), wu.data_ptr(), wv.data_ptr(), h, w, window,
+        int(subpixel), fbits, int(scale_gradient), int(robust),
+        float(period), win_u, win_v, float(amp_floor),
+        *gate_args(max_carrier_gradient), GATE_BAND, _ABLATE[ablate], tri)
     dynamic_step_lock_cuda.launches += 1
-    _build.check(err, "slc_dynamic_step_lock")
     return out
 
 

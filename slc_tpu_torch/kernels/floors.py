@@ -58,11 +58,9 @@ def halo_block_floor_cuda(img: torch.Tensor, halo: int = 10,
     h, w = img.shape
     _build.require(img, "img", img.dtype, (h, w), dev)
     out = torch.empty((n_out, h, w), dtype=torch.float32, device=dev)
-    err = getattr(_build.lib(), _ENTRY[img.dtype])(
-        img.data_ptr(), out.data_ptr(), n_out, h, w, halo,
-        _build.stream_of(dev))
+    _build.launch(_ENTRY[img.dtype], dev, img.data_ptr(), out.data_ptr(),
+                  n_out, h, w, halo)
     halo_block_floor_cuda.launches += 1
-    _build.check(err, _ENTRY[img.dtype])
     return tuple(out.unbind(0))
 
 

@@ -72,14 +72,13 @@ def grayphase_decode_cuda(gray_images: torch.Tensor,
     use_mod = min_modulation is not None
     min_mod_sq = float(min_modulation) ** 2 if use_mod else 0.0
     tri = _build.tri_array(tables.coeffs, cfg.fov_min, cfg.fov_max)
-    lib = _build.lib()
-    err = lib.slc_grayphase(
-        gray_images.data_ptr(), phase_images.data_ptr(), x.data_ptr(),
-        y.data_ptr(), z.data_ptr(), pu.data_ptr(), h, w, cfg.gray_bits,
-        cfg.phase_steps, float(cfg.gray_period), float(cfg.phase_period),
-        int(use_mod), min_mod_sq, tri, _build.stream_of(dev))
+    _build.launch(
+        "slc_grayphase", dev, gray_images.data_ptr(),
+        phase_images.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
+        pu.data_ptr(), h, w, cfg.gray_bits, cfg.phase_steps,
+        float(cfg.gray_period), float(cfg.phase_period), int(use_mod),
+        min_mod_sq, tri)
     grayphase_decode_cuda.launches += 1
-    _build.check(err, "slc_grayphase")
     return x, y, z, pu
 
 

@@ -112,15 +112,13 @@ def heterodyne_decode_cuda(images: torch.Tensor,
                    for _ in range(4))
     use_mod = min_modulation is not None
     tri = _build.tri_array(tables.coeffs, cfg.fov_min, cfg.fov_max)
-    err = _build.lib().slc_heterodyne(
-        images.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
-        pu.data_ptr(), h, w, len(periods), n, _floats(periods),
-        _floats(scales), _floats(spine), coarse, float(cfg.pro_w),
-        _floats(ck), _floats(sk), 2.0 / n, int(use_mod),
-        float(min_modulation) if use_mod else 0.0, tri,
-        _build.stream_of(dev))
+    _build.launch(
+        "slc_heterodyne", dev, images.data_ptr(), x.data_ptr(),
+        y.data_ptr(), z.data_ptr(), pu.data_ptr(), h, w, len(periods), n,
+        _floats(periods), _floats(scales), _floats(spine), coarse,
+        float(cfg.pro_w), _floats(ck), _floats(sk), 2.0 / n, int(use_mod),
+        float(min_modulation) if use_mod else 0.0, tri)
     heterodyne_decode_cuda.launches += 1
-    _build.check(err, "slc_heterodyne")
     return x, y, z, pu
 
 

@@ -73,12 +73,10 @@ def mg_down_cuda(r: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor,
     h, w = _require_level(r, wy, wx, dinv)
     e = torch.empty_like(r)
     res = torch.empty_like(r)
-    err = _build.lib().slc_mg_down(
-        r.data_ptr(), wy.data_ptr(), wx.data_ptr(), dinv.data_ptr(),
-        e.data_ptr(), res.data_ptr(), h, w, float(omega),
-        _build.stream_of(r.device))
+    _build.launch("slc_mg_down", r.device, r.data_ptr(), wy.data_ptr(),
+                  wx.data_ptr(), dinv.data_ptr(), e.data_ptr(),
+                  res.data_ptr(), h, w, float(omega))
     mg_down_cuda.launches += 1
-    _build.check(err, "slc_mg_down")
     return e, res
 
 
@@ -92,12 +90,10 @@ def mg_up_cuda(e: torch.Tensor, r: torch.Tensor, wy: torch.Tensor,
     ``e`` (h, w)."""
     h, w = _require_level(r, wy, wx, dinv, ((e, "e"),))
     out = torch.empty_like(r)
-    err = _build.lib().slc_mg_up(
-        e.data_ptr(), r.data_ptr(), wy.data_ptr(), wx.data_ptr(),
-        dinv.data_ptr(), out.data_ptr(), h, w, float(omega),
-        _build.stream_of(r.device))
+    _build.launch("slc_mg_up", r.device, e.data_ptr(), r.data_ptr(),
+                  wy.data_ptr(), wx.data_ptr(), dinv.data_ptr(),
+                  out.data_ptr(), h, w, float(omega))
     mg_up_cuda.launches += 1
-    _build.check(err, "slc_mg_up")
     return out
 
 

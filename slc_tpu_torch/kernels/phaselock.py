@@ -77,14 +77,13 @@ def phase_lock_cuda(frame: torch.Tensor, pu_pred: torch.Tensor,
                                           device=dev) for _ in range(4))
     scratch, wu, wv = lock_buffers(h, w, win_u, win_v, dev)
     tri = _build.tri_array(tables.coeffs, fov_min, fov_max)
-    err = _build.lib().slc_phase_lock(
-        frame.data_ptr(), pu_pred.data_ptr(), pu.data_ptr(), z.data_ptr(),
-        x.data_ptr(), y.data_ptr(), scratch.data_ptr(), wu.data_ptr(),
-        wv.data_ptr(), h, w, float(period), win_u, win_v, float(amp_floor),
-        *gate_args(max_carrier_gradient), GATE_BAND, tri,
-        _build.stream_of(dev))
+    _build.launch(
+        "slc_phase_lock", dev, frame.data_ptr(), pu_pred.data_ptr(),
+        pu.data_ptr(), z.data_ptr(), x.data_ptr(), y.data_ptr(),
+        scratch.data_ptr(), wu.data_ptr(), wv.data_ptr(), h, w,
+        float(period), win_u, win_v, float(amp_floor),
+        *gate_args(max_carrier_gradient), GATE_BAND, tri)
     phase_lock_cuda.launches += 1
-    _build.check(err, "slc_phase_lock")
     return out
 
 

@@ -84,12 +84,9 @@ def stripe_regression_cuda(frame: torch.Tensor, window: int = 21,
     _build.require(frame, "frame", torch.uint8, (h, w), dev)
     sw = torch.empty((h, w), dtype=torch.float32, device=dev)
     sb = torch.empty((h, w), dtype=torch.float32, device=dev)
-    err = _build.lib().slc_stripe(frame.data_ptr(), sw.data_ptr(),
-                                  sb.data_ptr(), h, w, window,
-                                  int(subpixel), fbits,
-                                  _build.stream_of(dev))
+    _build.launch("slc_stripe", dev, frame.data_ptr(), sw.data_ptr(),
+                  sb.data_ptr(), h, w, window, int(subpixel), fbits)
     stripe_regression_cuda.launches += 1
-    _build.check(err, "slc_stripe")
     return sw, sb
 
 

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
-the CPU tests' small shapes (96x160 and a ragged 90x150). Marked
+the CPU tests' small shapes (96x160 and a ragged 90x150; the track
+launch also at 1000x1270, the floors at widths 1270-1280). Marked
 ``cuda``: each test skips where there is no card. On the card:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -8,13 +9,16 @@ the CPU tests' small shapes (96x160 and a ragged 90x150). Marked
 with the card need not have; chip_smoke.py runs the same comparisons at
 the reference size.)"""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from slc_tpu_torch import devtime, synth
 from slc_tpu_torch.calib import build_tables, synthetic_calibration
-from slc_tpu_torch.config import HeterodyneConfig, SystemConfig
+from slc_tpu_torch.config import (REFERENCE_CONFIG, HeterodyneConfig,
+                                  SystemConfig)
 from slc_tpu_torch.kernels import bilateral as kbil
 from slc_tpu_torch.kernels import dynamic_step as kstep
 from slc_tpu_torch.kernels import floors as kfl
@@ -40,8 +44,15 @@ def dev():
 
 
 def _setup(h, w, dev):
-    cfg = SystemConfig(cam_h=h, cam_w=w, pro_h=96, pro_w=640, gray_bits=5)
-    calib = synthetic_calibration(cam_h=h, cam_w=w, pro_h=96, pro_w=640)
+    """The small test rig, or at a camera of 1000+ rows the reference's
+    projector (800x1280, as chip_smoke.py runs it)."""
+    if h >= 1000:
+        cfg = dataclasses.replace(REFERENCE_CONFIG, cam_h=h, cam_w=w)
+    else:
+        cfg = SystemConfig(cam_h=h, cam_w=w, pro_h=96, pro_w=640,
+                           gray_bits=5)
+    calib = synthetic_calibration(cam_h=h, cam_w=w, pro_h=cfg.pro_h,
+                                  pro_w=cfg.pro_w)
     return cfg, calib, build_tables(calib, h, w, dev)
 
 
@@ -73,12 +84,16 @@ def test_stripe_kernel(dev, shape, subpixel):
            kstripe.stripe_regression_ref(frame, 21, subpixel), 1e-5)
 
 
-def _step_args(shape, dev):
+def _step_args(shape, dev, window=None):
+    """The step's inputs; the carried strips from the stripe regression
+    of the previous frame at ``window`` (the config's by default). At
+    1000+ rows the plane moves 0.3 per frame, as in chip_smoke.py."""
     cfg, calib, tables = _setup(*shape, dev)
     frames, _, pu_gt = synth.render_dynamic_sequence(
-        calib, cfg, 2, stripe_period=12, noise_sigma=1.0)
+        calib, cfg, 2, dz_per_frame=0.3 if shape[0] >= 1000 else 0.08,
+        stripe_period=12, noise_sigma=1.0)
     f0, f1 = (torch.from_numpy(f).to(dev) for f in frames)
-    sw, sb = kstripe.stripe_regression_ref(f0, cfg.reco_window)
+    sw, sb = kstripe.stripe_regression_ref(f0, window or cfg.reco_window)
     pu = torch.from_numpy(pu_gt[0].astype(np.float32)).to(dev)
     return cfg, (f1, sw, sb, pu, tables)
 
@@ -181,13 +196,13 @@ GATES = ["off", "on", "over"]
 LOCK_BARS = (2e-3, 4e-3, 4e-3, 4e-3)
 
 
-def _lock_close(got, want):
-    """P within 2e-3 off at most 2 isolated arccos tie pixels, each moved
-    by at most T/2 (chip_smoke.py pins up to 32 at 1.3 MP); z, x, y within
-    4e-3 off those pixels."""
+def _lock_close(got, want, flips=2):
+    """P within 2e-3 off at most ``flips`` isolated arccos tie pixels, each
+    moved by at most T/2 (chip_smoke.py pins up to 32 at 1.3 MP); z, x, y
+    within 4e-3 off those pixels."""
     d = (got[0] - want[0]).abs()
     flip = d > LOCK_BARS[0]
-    assert int(flip.sum()) <= 2 and float(d.max()) <= 6.0 + LOCK_BARS[0]
+    assert int(flip.sum()) <= flips and float(d.max()) <= 6.0 + LOCK_BARS[0]
     assert not bool((flip[:-1, :-1] & flip[1:, :-1] & flip[:-1, 1:]
                      & flip[1:, 1:]).any())
     keep = ~flip
@@ -249,6 +264,30 @@ def test_locked_step_windows_and_gate(dev, shape, win_u, win_v, gate):
     _lock_close(got[:1] + got[3:], want[:1] + want[3:])
 
 
+@pytest.mark.parametrize("shape", SHAPES + [(1000, 1270)])
+@pytest.mark.parametrize("window", [5, 21, 63])
+@pytest.mark.parametrize("subpixel,frac_bits", [(True, 0), (False, 0),
+                                                (True, 7)])
+def test_track_windows(dev, shape, window, subpixel, frac_bits):
+    """The track launch at every extrema width it takes (four pixels a
+    thread at window 5, eight above), ragged and at 1000x1270: the
+    open-loop step and the locked step against their plain versions,
+    the carried strips from the stripe regression at the same window."""
+    cfg, args = _step_args(shape, dev, window)
+    kw = dict(window=window, subpixel=subpixel, frac_bits=frac_bits,
+              fov_min=cfg.fov_min, fov_max=cfg.fov_max)
+    got = kstep.dynamic_step_open_cuda(*args, **kw)
+    want = kstep.dynamic_step_open_ref(*args, **kw)
+    for i, bar in enumerate((2e-4, 1e-5, 1e-5, 2e-3, 2e-4, 2e-4)):
+        _close(got[i:i + 1], want[i:i + 1], bar)
+    lk = dict(kw, period=12.0, win_u=21, win_v=9)
+    got = kstep.dynamic_step_lock_cuda(*args, **lk)
+    want = kstep.dynamic_step_lock_ref(*args, **lk)
+    _close(got[1:3], want[1:3], 1e-5)
+    _lock_close(got[:1] + got[3:], want[:1] + want[3:],
+                flips=32 if shape[0] > 100 else 2)
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("frac_bits", [0, 7])
 def test_two_kernel_locked_step_equals_fused(dev, shape, frac_bits):
@@ -278,6 +317,22 @@ def test_floor_kernel(dev, shape, dtype, halo, n_out):
     got = kfl.halo_block_floor_cuda(img, halo, n_out)
     for g, e in zip(got, kfl.halo_block_floor_ref(img, halo, n_out)):
         assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("width", [1270, 1276, 1279, 1280])
+@pytest.mark.parametrize("halo", [0, 1, 10, 31])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_floor_kernel_alignment_paths(dev, width, halo, dtype):
+    """Every path of the floors' staging and stores, exact for n_out 1
+    and 2: 16-byte rows and float4 stores (1280), float4 stores with u8
+    rows staged byte by byte (1276), element by element (1270, 1279)."""
+    rng = np.random.default_rng(halo)
+    img = torch.from_numpy(rng.integers(0, 256, (40, width)).astype(
+        np.uint8 if dtype == torch.uint8 else np.float32)).to(dev)
+    for n_out in (1, 2):
+        got = kfl.halo_block_floor_cuda(img, halo, n_out)
+        for g, e in zip(got, kfl.halo_block_floor_ref(img, halo, n_out)):
+            assert torch.equal(g, e)
 
 
 @pytest.mark.parametrize("shape", SHAPES)

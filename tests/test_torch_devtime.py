@@ -5,6 +5,8 @@ name nvidia-smi reports, and count_ops counts a call's arithmetic. The
 timing itself runs on the card (tests/test_torch_cuda.py,
 chip_smoke.py)."""
 
+import weakref
+
 import pytest
 import torch
 
@@ -65,3 +67,27 @@ _X = torch.arange(12, dtype=torch.float32).reshape(3, 4)
 ])
 def test_count_ops(fn, ops):
     assert devtime.count_ops(fn) == ops
+
+
+def test_rotating_cycles_the_sets_and_frees_each_result_in_turn():
+    """``rotating`` calls ``fn`` on the sets in turn; a set's previous
+    result is released before the call that replaces it (so the caching
+    allocator hands that call the same memory), and held until then."""
+    class Out:
+        pass
+
+    refs, calls = [], []
+
+    def fn(s):
+        if len(refs) >= 2:
+            assert refs[-2]() is None        # the slot's old result: freed
+            assert refs[-1]() is not None    # the other slot's: held
+        calls.append(s)
+        out = Out()
+        refs.append(weakref.ref(out))
+        return out
+
+    call = devtime.rotating(fn, ["a", "b"])
+    for _ in range(5):
+        call()
+    assert calls == ["a", "b", "a", "b", "a"]

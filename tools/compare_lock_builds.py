@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Compare the lock launches of this checkout's kernel library with those
-of another checkout of slc_tpu_torch, on one CUDA card.
+"""Compare the tracking-step and lock launches of this checkout's kernel
+library with those of another checkout of slc_tpu_torch, on one CUDA
+card.
 
     python3 tools/compare_lock_builds.py OTHER_CHECKOUT
 
@@ -11,15 +12,19 @@ Both libraries are driven through this checkout's wrappers (their C
 interface is the same), at chip_smoke.py's two shapes, 1024x1280 and
 1000x1270:
 
-1. bit for bit: the locked step (``frac_bits`` 0 and 7) and the
-   standalone lock on the open-loop step's P with a hole band, at the
-   suggested lock window and at windows (3, 3) and (63, 63), with the gate
-   on and off; every output map must be equal;
-2. at 1024x1280, the kernels-alone device time of the locked step, of
-   the step up to the lock's DC (``ablate="dc"``: track and the DC
-   launches) and of the standalone lock (``devtime.graph_time_s``, 20
-   calls in one CUDA graph), the two libraries in turns (other, this,
-   this, other).
+1. bit for bit: the open-loop step's six maps and the locked step's
+   six, at stripe windows 5, 21 and 63, ``subpixel`` on and off,
+   ``frac_bits`` 0 and 7, ``scale_gradient`` and ``robust`` each on and
+   off (the locked step at the suggested lock window, gate on); the
+   locked step (``frac_bits`` 0 and 7) and the standalone lock on the
+   open-loop step's P with a hole band, at the suggested lock window and
+   at windows (3, 3) and (63, 63), with the gate on and off; every output
+   map must be equal;
+2. at 1024x1280, the kernels-alone device time of the open-loop step,
+   the locked step's track launch (``ablate="track"``), the step up to
+   the lock's DC (``ablate="dc"``), the locked step and the standalone
+   lock (``devtime.graph_time_s``, 20 calls in one CUDA graph), the two
+   libraries in turns (other, this, this, other).
 
 Exits non-zero if any map differs.
 """
@@ -29,6 +34,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import importlib.util
+import itertools
 import os
 import subprocess
 import sys
@@ -105,6 +111,19 @@ def main(argv=None) -> int:
         pred[:, 40:48] = 0.0
         win = suggest_lock_window(pu_gt[0], LOCK_T)
         cases = {}
+        for window, sub, frac, sg, rb in itertools.product(
+                (5, 21, 63), (True, False), (0, 7), (True, False),
+                (True, False)):
+            tk = dict(window=window, subpixel=sub, frac_bits=frac,
+                      scale_gradient=sg, robust=rb, fov_min=cfg.fov_min,
+                      fov_max=cfg.fov_max)
+            tag = (f"window {window} subpixel {sub:d} frac {frac} scale "
+                   f"{sg:d} robust {rb:d}")
+            cases[f"open-loop step {tag}"] = (
+                lambda tk=tk: kstep.dynamic_step_open_cuda(*step_args, **tk))
+            cases[f"locked step {tag}"] = (
+                lambda tk=tk: kstep.dynamic_step_lock_cuda(
+                    *step_args, **tk, period=LOCK_T, win_u=win, win_v=9))
         for wu, wv in sorted({(win, 9), (3, 3), (63, 63)}):
             for thresh in (2e-3, 0.0):
                 lk = dict(period=LOCK_T, win_u=wu, win_v=wv,
@@ -133,6 +152,11 @@ def main(argv=None) -> int:
         if (h, w) == SHAPES[0]:
             lk = dict(period=LOCK_T, win_u=win, win_v=9)
             timed = {
+                "open-loop step": lambda: kstep.dynamic_step_open_cuda(
+                    *step_args, **kw),
+                "track launch (ablate track)":
+                    lambda: kstep.dynamic_step_lock_cuda(
+                        *step_args, **kw, **lk, ablate="track"),
                 "locked step": lambda: kstep.dynamic_step_lock_cuda(
                     *step_args, **kw, **lk),
                 "locked step to DC": lambda: kstep.dynamic_step_lock_cuda(
