@@ -12,7 +12,10 @@ Run from the root of a checkout. In order it:
 3. holds each kernel against its plain PyTorch version, both on the card,
    at the reference shape 1024x1280 and a ragged 1000x1270, on rendered
    inputs (a random frame for the stripe kernel, random O(1) levels for
-   the multigrid kernels), at the bars of the CPU parity tests; the
+   the multigrid kernels), at the bars of the CPU parity tests; stripe at
+   windows 5, 21 and 63, the multigrid kernels at the three level shapes
+   of each shape's chain (1024x1280, 512x640, 256x320; 1000x1270,
+   500x635, 250x318); the
    stripe and step kernels also in fast sub-pixel mode (``frac_bits=7``)
    against the quantizing plain versions; the access-pattern floors
    exactly; and the two-kernel locked step (open-loop step, then the
@@ -27,7 +30,11 @@ Run from the root of a checkout. In order it:
    kernels; the two-kernel vs the fused locked step; the locked step's
    stages (``ablate``); the open-loop and locked steps cold, their inputs
    and outputs rotated over COLD_SETS sets (``devtime.rotating``, over
-   twice the card's 50 MB L2), beside their L2-resident times. Where
+   twice the card's 50 MB L2), beside their L2-resident times;
+   ``mg_down`` and ``mg_up`` at each level shape of the 1024x1280 chain,
+   ``mg_up`` cold at 1024x1280, and each multigrid kernel's time per
+   preconditioner call (launches per level x time; per spatial decode in
+   phase 5, once ``cg_iters`` is known). Where
    ``torch.profiler`` records CUDA kernels
    (CUPTI tracing may be denied), also the plain versions' kernels alone
    and the locked step by launch, from its records; where it does not,
@@ -108,6 +115,9 @@ N_FRAMES = 30
 N_FRINGE_FRAMES = 10
 LOCK_T = 12.0
 HET = HeterodyneConfig()
+#: Stripe windows held against the plain version: check_window's ends and
+#: the reference's 21.
+STRIPE_WINDOWS = (5, 21, 63)
 
 # Bars (tests/test_torch_*.py): decode P 2e-3, x/y/z 8e-3; strips 1e-5;
 # locked step and standalone lock P 2e-3, z/x 4e-3; open-loop P 2e-4,
@@ -229,6 +239,16 @@ def cfg_for(h, w):
     return dataclasses.replace(REFERENCE_CONFIG, cam_h=h, cam_w=w)
 
 
+def level_chain(h, w, n=3):
+    """The first ``n`` multigrid level shapes from (h, w), each side
+    halved and rounded up as U.build_mg_levels does: at 1024x1280 the
+    three levels the kernels take (min side >= MG_KERNEL_MIN)."""
+    shapes = [(h, w)]
+    while len(shapes) < n:
+        shapes.append((-(-shapes[-1][0] // 2), -(-shapes[-1][1] // 2)))
+    return shapes
+
+
 def mg_level(dev, h, w, seed=0):
     """A random O(1) multigrid level: quality in [0.1, 1]."""
     rng = np.random.default_rng(seed)
@@ -264,11 +284,14 @@ def parity(dev, errs, inputs):
         rand = np.random.default_rng(0).integers(0, 256, (h, w), np.uint8)
         for frame in (rand, frames[1]):
             f = torch.from_numpy(frame).to(dev)
-            for sub, frac in ((True, 0), (False, 0), (True, 7)):
-                compare("stripe",
-                        kstripe.stripe_regression_cuda(f, 21, sub, frac),
-                        kstripe.stripe_regression_ref(f, 21, sub, frac),
-                        ("strip_w", "strip_b"), errs)
+            for window in STRIPE_WINDOWS:
+                for sub, frac in ((True, 0), (False, 0), (True, 7)):
+                    compare("stripe",
+                            kstripe.stripe_regression_cuda(f, window, sub,
+                                                           frac),
+                            kstripe.stripe_regression_ref(f, window, sub,
+                                                          frac),
+                            ("strip_w", "strip_b"), errs)
             floor = kfl.halo_block_floor_cuda(f, 21 // 2, 2)
             compare("halo_block_floor", floor,
                     kfl.halo_block_floor_ref(f, 21 // 2, 2), ("o0", "o1"),
@@ -347,15 +370,18 @@ def parity(dev, errs, inputs):
         compare("halo_block_floor", kfl.halo_block_floor_cuda(depth, 1, 1),
                 kfl.halo_block_floor_ref(depth, 1, 1), ("o0",), errs)
 
-        r, e, wy, wx, dinv = mg_level(dev, h, w)
-        compare("mg_down", kmg.mg_down_cuda(r, wy, wx, dinv),
-                kmg.mg_down_ref(r, wy, wx, dinv), ("e", "res"), errs)
-        compare("mg_up", (kmg.mg_up_cuda(e, r, wy, wx, dinv),),
-                (kmg.mg_up_ref(e, r, wy, wx, dinv),), ("e",), errs)
+        levels = {}
+        for lh, lw in level_chain(h, w):
+            r, e, wy, wx, dinv = levels[(lh, lw)] = mg_level(dev, lh, lw)
+            log(f"  multigrid level {lh}x{lw}")
+            compare("mg_down", kmg.mg_down_cuda(r, wy, wx, dinv),
+                    kmg.mg_down_ref(r, wy, wx, dinv), ("e", "res"), errs)
+            compare("mg_up", (kmg.mg_up_cuda(e, r, wy, wx, dinv),),
+                    (kmg.mg_up_ref(e, r, wy, wx, dinv),), ("e",), errs)
         if (h, w) == SHAPES[0]:
             inputs.update(g=g, p=p, tables=tables, cfg=cfg, frame=f1,
                           step_args=args, win=win, fringes=fr, depth=depth,
-                          level=(r, e, wy, wx, dinv), pred=pred)
+                          level=levels[(h, w)], levels=levels, pred=pred)
 
 
 def timing(inputs, card, use_profiler=True):
@@ -542,6 +568,35 @@ def timing(inputs, card, use_profiler=True):
             f"{out[name][2]:.4f} ms, cold {cold:.4f} ms (inputs and outputs "
             f"rotated over {COLD_SETS} sets)")
     del sets
+
+    # The multigrid kernels at each level shape of the reference chain
+    # (kernels alone), mg_up also cold at full size, and each kernel's
+    # time per preconditioner call: launches per level x time.
+    level_ms = {}
+    for (lh, lw), (lr, le, lwy, lwx, ldinv) in inputs["levels"].items():
+        level_ms[(lh, lw)] = {
+            "mg_down": alone_ms(lambda: kmg.mg_down_cuda(lr, lwy, lwx, ldinv),
+                                "mg_down"),
+            "mg_up": alone_ms(lambda: kmg.mg_up_cuda(le, lr, lwy, lwx,
+                                                     ldinv), "mg_up")}
+        log(f"time multigrid level {lh}x{lw}, kernels alone (graph): "
+            + ", ".join(f"{k} {v:.4f} ms"
+                        for k, v in level_ms[(lh, lw)].items()))
+    sets = [tuple(a.clone() for a in (e, r, wy, wx, dinv))
+            for _ in range(COLD_SETS)]
+    cold = alone_ms(devtime.rotating(lambda a: kmg.mg_up_cuda(*a), sets),
+                    "mg_up")
+    del sets
+    log(f"time mg_up at 1024x1280, kernels alone (graph): L2-resident "
+        f"{level_ms[SHAPES[0]]['mg_up']:.4f} ms, cold {cold:.4f} ms (inputs "
+        f"and output rotated over {COLD_SETS} sets)")
+    visits = mg_kernel_visits(*SHAPES[0])
+    log("multigrid kernels per preconditioner call at 1024x1280 (launches "
+        "per level x kernels-alone time): " + "; ".join(
+            f"{k} " + " + ".join(f"{n} x {level_ms[sh][k]:.4f}"
+                                 for sh, n in visits.items())
+            + f" = {mg_ms_per_call(level_ms, k):.4f} ms"
+            for k in ("mg_down", "mg_up")))
     launches = {k: dev_ms(fused_step, "dynamic_step_lock", match=k)
                 for k in ("track_kernel", "lock_dc_kernel",
                           "lock_corr_kernel", "snap_kernel")}
@@ -587,7 +642,7 @@ def timing(inputs, card, use_profiler=True):
             bounds[name] = (None, None)
             line += "; bound not known for this card"
         log(line)
-    return out, expect, bounds, library
+    return out, expect, bounds, library, level_ms
 
 
 #: The kernel wrappers, each with its ``launches`` count.
@@ -697,24 +752,32 @@ def gray_runs(launches):
                 f"{name} error not below half the free-running one: {errs}")
 
 
-def mg_launches_per_cycle(h, w):
-    """Launches of each multigrid kernel per preconditioner call: the
-    levels of U.build_mg_levels at least MG_KERNEL_MIN on both sides,
-    each once per visit; a K-cycle level visits the next one twice."""
+def mg_kernel_visits(h, w):
+    """Launches of each multigrid kernel per preconditioner call, by
+    level: the levels of U.build_mg_levels at least MG_KERNEL_MIN on both
+    sides, each once per visit; a K-cycle level visits the next one
+    twice. {(h, w): launches}."""
     shapes = [(h, w)]
     while min(shapes[-1]) > U.MG_COARSEST:
         lh, lw = shapes[-1]
         shapes.append((-(-lh // 2), -(-lw // 2)))
-    n, visits, kdepth = 0, 1, U.MG_KDEPTH
+    out, visits, kdepth = {}, 1, U.MG_KDEPTH
     for i, (lh, lw) in enumerate(shapes[:-1]):
         if U.MG_NU == 2 and min(lh, lw) >= U.MG_KERNEL_MIN:
-            n += visits
+            out[(lh, lw)] = visits
         if kdepth > 0 and len(shapes) - i > 2:
             visits, kdepth = 2 * visits, kdepth - 1
-    return n
+    return out
 
 
-def fringe_runs(dev, launches):
+def mg_ms_per_call(level_ms, kernel):
+    """A multigrid kernel's device ms per preconditioner call at the
+    reference shape: launches per level x its kernels-alone time there."""
+    visits = mg_kernel_visits(*SHAPES[0])
+    return sum(n * level_ms[shape][kernel] for shape, n in visits.items())
+
+
+def fringe_runs(dev, launches, level_ms):
     """Phase 5b: the heterodyne and spatial frame-0 decodes through the
     CLI, on a synth-style dataset with the fringe stack."""
     cfg = REFERENCE_CONFIG
@@ -765,7 +828,7 @@ def fringe_runs(dev, launches):
             f"heterodyne errors too large: {err0}, {err_last}")
 
     out = os.path.join(WORK, "spatial")
-    per_cycle = mg_launches_per_cycle(cfg.cam_h, cfg.cam_w)
+    per_cycle = sum(mg_kernel_visits(cfg.cam_h, cfg.cam_w).values())
     period = float(cfg.phase_period)
     p0 = torch.from_numpy(scene.phase_images).to(dev)
     info = {}
@@ -791,6 +854,11 @@ def fringe_runs(dev, launches):
         f"multigrid kernel per preconditioner call, so "
         f"{per_cycle * (info['cg_iters'] + 1)} per decode; "
         f"t_first_frame_ms {recs[0]['t_first_frame_ms']}")
+    calls = info["cg_iters"] + 1
+    log("e2e spatial: multigrid kernels per decode, kernels alone "
+        f"(phase 4's per-call times x {calls} calls): " + ", ".join(
+            f"{k} {calls * mg_ms_per_call(level_ms, k):.4f} ms"
+            for k in ("mg_down", "mg_up")))
     tables = build_tables(calib, cfg.cam_h, cfg.cam_w, dev)
     direct = decode_spatial_frame(p0, tables, cfg, period)
     cloud = np.load(os.path.join(out, "iFrame.npz"))
@@ -844,8 +912,8 @@ def main(argv=None) -> int:
         parity(dev, errs, inputs)
         # The device-timing path, counted like a run.
         reset_counts()
-        times, expect, bounds, library = timing(inputs, card,
-                                                not args.no_profiler)
+        times, expect, bounds, library, level_ms = timing(
+            inputs, card, not args.no_profiler)
         got = read_counts()
         log(f"device-timing path launches {got}")
         require(got == expect, f"launch counts {got} != expected {expect}")
@@ -853,7 +921,7 @@ def main(argv=None) -> int:
             launches[k] += v
         del inputs
         gray_runs(launches)
-        fringe_runs(dev, launches)
+        fringe_runs(dev, launches, level_ms)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

@@ -104,44 +104,6 @@ struct TrackPlan {
   }
 };
 
-// v[m] = p[gi0 + m] for the K pixels from global column gx0 of one row, 0
-// outside [0, w); float4 loads when ``full`` (all K inside, 16-byte
-// aligned).
-template <int K>
-__device__ __forceinline__ void load_group(const float* __restrict__ p,
-                                           long long gi0, bool full,
-                                           int gx0, int w, float (&v)[K]) {
-  if (full) {
-#pragma unroll
-    for (int j = 0; j < K / 4; ++j) {
-      const float4 q = __ldg(reinterpret_cast<const float4*>(p + gi0) + j);
-      v[4 * j] = q.x; v[4 * j + 1] = q.y; v[4 * j + 2] = q.z;
-      v[4 * j + 3] = q.w;
-    }
-    return;
-  }
-#pragma unroll
-  for (int m = 0; m < K; ++m)
-    v[m] = gx0 + m >= 0 && gx0 + m < w ? p[gi0 + m] : 0.0f;
-}
-
-template <int K>
-__device__ __forceinline__ void store_group(float* __restrict__ p,
-                                            long long gi0, bool full,
-                                            int gx0, int w,
-                                            const float (&v)[K]) {
-  if (full) {
-#pragma unroll
-    for (int j = 0; j < K / 4; ++j)
-      reinterpret_cast<float4*>(p + gi0)[j] =
-          make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
-    return;
-  }
-#pragma unroll
-  for (int m = 0; m < K; ++m)
-    if (gx0 + m >= 0 && gx0 + m < w) p[gi0 + m] = v[m];
-}
-
 // Stage A (+ D open loop) on a kTrackH x kTrackW tile, in three phases:
 //
 //   1. the frame window (stage_tiles, 16-byte chunks where the pitch
@@ -801,8 +763,6 @@ __global__ void snap_kernel(const float* pu_in, float* pu_out,
     y_out[gi] = y;
   }
 }
-
-bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 // float4 maps (VEC) where w % 4 == 0 and every map is 16-byte aligned.
 cudaError_t launch_track(const uint8_t* frame, const float* prev_sw,

@@ -3,16 +3,18 @@ descent (``mg_down``) and the ascent (``mg_up``) of ops.unwrap_spatial's
 ``vcycle`` with nu = 2.
 
 Source note. Replaces slc_tpu/pallas/mgsmooth.py:149 ``mg_down_pallas``
-and :178 ``mg_up_pallas``. The CUDA kernels (csrc/mgsmooth.cu) give a
-block a 32x16 output tile and stage r, omega*dinv and the edge weights
-of the tile plus a 2-px halo in shared memory, in both directions (the
-TPU kernels held whole rows and needed a row halo only): sweep 1 runs on
-tile+2, sweep 2 on tile+1, the residual or the last post-smooth on the
-tile. Each moves 24 B/px of device memory (mg_down: r, wy, wx, dinv in,
-e and res out; mg_up: e, r, wy, wx, dinv in, e out) and is bound by it;
-the plain versions stream ~25 full-image maps per level. The kernels
-round every operation on its own, in the plain path's association, so
-they match it to about an ulp.
+and :178 ``mg_up_pallas``. The CUDA kernels (csrc/mgsmooth.cu) work on
+2-D tiles with a 2-px halo in both directions (the TPU kernels held
+whole rows and needed a row halo only): ``mg_down`` on 32x16 tiles, sweep
+1 on tile+2, sweep 2 on tile+1, the residual on the tile; ``mg_up`` on
+128x40 tiles at full size (128x8 on smaller levels), a thread four
+columns of a strip of rows, e and wx staged in 16-byte chunks, r, dinv
+and wy in registers, post-smooth 1 on tile+1 and 2 on the tile. Each
+moves 24 B/px of device memory (mg_down: r, wy, wx, dinv in, e and res
+out; mg_up: e, r, wy, wx, dinv in, e out) and is bound by it; the plain
+versions stream ~25 full-image maps per level. The kernels round every
+operation on its own, in the plain path's association, so they match it
+to about an ulp.
 
 ``mg_down`` and ``mg_up`` dispatch on the device of ``r``: CPU tensors
 take the plain PyTorch version, CUDA tensors the kernel (or it raises).

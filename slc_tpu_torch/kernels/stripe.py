@@ -2,15 +2,17 @@
 
 Source note. Replaces slc_tpu/pallas/stripe.py:102
 ``stripe_regression_pallas``. The CUDA kernel (csrc/stripe.cu) works on
-2-D tiles: the u8 tile and its halo (r rows above and below, r+1 columns
-left, r right) become window-row integer box sums in shared memory once,
-and each thread scans its pixels' offsets [-r, r) there with strict
-comparisons from the center: the reference tie-break, exactly. On the card
-it is bound by device memory: one u8 read and two f32 writes, 9 B/px; the
-halo re-reads hit the caches. With ``frac_bits`` > 0 (fast sub-pixel
-mode) the winner is the exact one and only its parabola fraction is
-quantized, the semantics of slc_tpu's packed tournament without the
-packing (see :func:`fast_frac_bits`).
+128x40 tiles: the u8 tile and its halo (r rows above and below, r+1
+columns left, r right) are staged in shared memory in 16-byte chunks and
+become window-row integer box sums there; each thread then takes four
+neighbouring pixels of a row, whose windows share their taps, and finds
+each window's extrema from integer keys that carry the offset: the
+reference's tie-break (the centre wins a tie, else the leftmost offset),
+exactly. It moves 9 B/px (one u8 read, two f32 writes); its bound on the
+card is the plain version's 231 operations/px. With ``frac_bits`` > 0
+(fast sub-pixel mode) the winner is the exact one and only its parabola
+fraction is quantized, the semantics of slc_tpu's packed tournament
+without the packing (see :func:`fast_frac_bits`).
 
 ``stripe_regression`` dispatches on the device of the frame: CPU tensors
 take the plain PyTorch version, CUDA tensors the kernel (or it raises).

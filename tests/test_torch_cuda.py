@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
 the CPU tests' small shapes (96x160 and a ragged 90x150; the track
-launch also at 1000x1270, the floors at widths 1270-1280). Marked
+launch also at 1000x1270, the multigrid kernels at 97x201, the floors at
+widths 1270-1280). Marked
 ``cuda``: each test skips where there is no card. On the card:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -77,11 +78,12 @@ def test_grayphase_kernel(dev, shape, min_mod):
 
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("subpixel", [False, True])
-def test_stripe_kernel(dev, shape, subpixel):
+@pytest.mark.parametrize("window", [5, 21, 63])
+def test_stripe_kernel(dev, shape, subpixel, window):
     frame = torch.from_numpy(np.random.default_rng(0).integers(
         0, 256, shape, np.uint8)).to(dev)
-    _close(kstripe.stripe_regression_cuda(frame, 21, subpixel),
-           kstripe.stripe_regression_ref(frame, 21, subpixel), 1e-5)
+    _close(kstripe.stripe_regression_cuda(frame, window, subpixel),
+           kstripe.stripe_regression_ref(frame, window, subpixel), 1e-5)
 
 
 def _step_args(shape, dev, window=None):
@@ -152,7 +154,7 @@ def test_bilateral_kernel(dev, shape):
            1e-4)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + [(97, 201)])
 def test_mg_level_kernels(dev, shape):
     """The level kernels round every operation as the plain ops do: 2e-6
     on O(1) data (tests/test_pallas.py:404-437)."""

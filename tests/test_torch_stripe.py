@@ -21,13 +21,16 @@ from slc_tpu_torch.ops.stripe import select_delta_p
 torch.set_num_threads(2)
 
 
+@pytest.mark.parametrize("window", [5, 21, 63])
 @pytest.mark.parametrize("subpixel", [False, True])
 @pytest.mark.parametrize("shape", [(96, 160), (100, 200)])
-def test_stripe_regression_matches_jax(rng, subpixel, shape):
+def test_stripe_regression_matches_jax(rng, window, subpixel, shape):
+    """Windows 5..63, the kernels' range (check_window); at r = 31 both
+    shapes keep an interior of 34+ rows."""
     frame = rng.integers(0, 256, size=shape, dtype=np.uint8)
-    sw, sb = stripe_regression(torch.from_numpy(frame), 21, subpixel)
-    xw, xb = j_stripe(jnp.asarray(frame), 21, subpixel)
-    pw, pb = stripe_regression_pallas(jnp.asarray(frame), 21, subpixel,
+    sw, sb = stripe_regression(torch.from_numpy(frame), window, subpixel)
+    xw, xb = j_stripe(jnp.asarray(frame), window, subpixel)
+    pw, pb = stripe_regression_pallas(jnp.asarray(frame), window, subpixel,
                                       block_h=32, interpret=True)
     for want_w, want_b in ((xw, xb), (pw, pb)):
         np.testing.assert_allclose(sw.numpy(), np.asarray(want_w), atol=1e-5)

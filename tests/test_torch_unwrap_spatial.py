@@ -112,11 +112,13 @@ def test_vcycle_matches_jax(shape, coarsest):
     _close(got, want, 1e-5 * np.abs(want).max())
 
 
-def test_mg_level_ops_match_xla_and_pallas():
+@pytest.mark.parametrize("shape", [(96, 200), (97, 201)])
+def test_mg_level_ops_match_xla_and_pallas(shape):
     """The plain level ops against slc_tpu's XLA vcycle ops and its Pallas
-    level kernels in interpret mode (tests/test_pallas.py:404-437)."""
+    level kernels in interpret mode (tests/test_pallas.py:404-437), on an
+    even and an odd level shape."""
     rng = np.random.default_rng(1234)
-    h, w = 96, 200
+    h, w = shape
     om = jnp.float32(0.9)
     q = rng.uniform(0.1, 1.0, (h, w)).astype(np.float32)
     wy, wx = J.edge_weights(jnp.asarray(q))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Compare the tracking-step and lock launches of this checkout's kernel
-library with those of another checkout of slc_tpu_torch, on one CUDA
-card.
+"""Compare the stripe, tracking-step, lock and multigrid launches of this
+checkout's kernel library with those of another checkout of
+slc_tpu_torch, on one CUDA card.
 
     python3 tools/compare_lock_builds.py OTHER_CHECKOUT
 
@@ -12,18 +12,26 @@ Both libraries are driven through this checkout's wrappers (their C
 interface is the same), at chip_smoke.py's two shapes, 1024x1280 and
 1000x1270:
 
-1. bit for bit: the open-loop step's six maps and the locked step's
+1. bit for bit: the stripe regression's two maps at windows 5, 21 and
+   63, ``subpixel`` on and off, ``frac_bits`` 0 and 7, on a random frame
+   and a rendered one; the open-loop step's six maps and the locked step's
    six, at stripe windows 5, 21 and 63, ``subpixel`` on and off,
    ``frac_bits`` 0 and 7, ``scale_gradient`` and ``robust`` each on and
    off (the locked step at the suggested lock window, gate on); the
    locked step (``frac_bits`` 0 and 7) and the standalone lock on the
    open-loop step's P with a hole band, at the suggested lock window and
-   at windows (3, 3) and (63, 63), with the gate on and off; every output
-   map must be equal;
-2. at 1024x1280, the kernels-alone device time of the open-loop step,
-   the locked step's track launch (``ablate="track"``), the step up to
-   the lock's DC (``ablate="dc"``), the locked step and the standalone
-   lock (``devtime.graph_time_s``, 20 calls in one CUDA graph), the two
+   at windows (3, 3) and (63, 63), with the gate on and off; ``mg_down``'s
+   two maps and ``mg_up``'s one on random levels (chip_smoke.py's
+   ``mg_level``) at the three multigrid level shapes of each shape's
+   chain (1024x1280, 512x640, 256x320; 1000x1270, 500x635, 250x318);
+   every output map must be equal;
+2. the kernels-alone device time (``devtime.graph_time_s``, 20 calls in
+   one CUDA graph) of, at 1024x1280, the stripe regression (window 21,
+   sub-pixel), the open-loop step, the locked step's track launch
+   (``ablate="track"``), the step up to the lock's DC (``ablate="dc"``),
+   the locked step and the standalone lock; of ``mg_down`` and ``mg_up``
+   at each level shape; and of ``mg_up`` cold at 1024x1280 (inputs and
+   output rotated over COLD_SETS sets, ``devtime.rotating``); the two
    libraries in turns (other, this, this, other).
 
 Exits non-zero if any map differs.
@@ -45,17 +53,21 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+from chip_smoke import level_chain, mg_level  # noqa: E402
 from slc_tpu_torch import devtime, synth  # noqa: E402
 from slc_tpu_torch.calib import build_tables, synthetic_calibration  # noqa
 from slc_tpu_torch.config import REFERENCE_CONFIG  # noqa: E402
 from slc_tpu_torch.kernels import _build  # noqa: E402
 from slc_tpu_torch.kernels import dynamic_step as kstep  # noqa: E402
+from slc_tpu_torch.kernels import mgsmooth as kmg  # noqa: E402
 from slc_tpu_torch.kernels import phaselock as kpl  # noqa: E402
 from slc_tpu_torch.kernels import stripe as kstripe  # noqa: E402
 from slc_tpu_torch.ops.demod import suggest_lock_window  # noqa: E402
 
 SHAPES = ((1024, 1280), (1000, 1270))
 LOCK_T = 12.0
+#: Input sets of mg_up's cold timing: 24 B/px each, ~189 MB at 1024x1280.
+COLD_SETS = 6
 
 
 def other_library(root: str):
@@ -77,6 +89,31 @@ def using(lib, fn):
         finally:
             _build._lib = saved
     return call
+
+
+def same_maps(libs, tag, fn):
+    """Run ``fn`` on both libraries and print which output maps differ;
+    returns (maps, maps that differ)."""
+    a = using(libs["other"], fn)()
+    b = using(libs["this"], fn)()
+    diff = [i for i, (x, y) in enumerate(zip(a, b)) if not torch.equal(x, y)]
+    print(f"{tag}: " + ("bit-identical" if not diff else f"DIFFER in maps "
+                       f"{diff}, max|diff| " + ", ".join(
+                           f"{float((a[i] - b[i]).abs().max()):.3e}"
+                           for i in diff)), flush=True)
+    return len(a), len(diff)
+
+
+def time_turns(libs, tag, fn):
+    """The kernels-alone device time of ``fn`` with each library, in
+    turns (other, this, this, other)."""
+    t = {k: [] for k in libs}
+    for k in ("other", "this", "this", "other"):
+        t[k].append(1e3 * devtime.graph_time_s(using(libs[k], fn)))
+    print(f"time {tag}, kernels alone (graph of 20), this vs other: "
+          f"{sum(t['this']) / 2:.4f} ms ({t['this'][0]:.4f}, "
+          f"{t['this'][1]:.4f}) vs {sum(t['other']) / 2:.4f} ms "
+          f"({t['other'][0]:.4f}, {t['other'][1]:.4f})", flush=True)
 
 
 def main(argv=None) -> int:
@@ -137,21 +174,32 @@ def main(argv=None) -> int:
                     lambda lk=lk: kpl.phase_lock_cuda(
                         f1, pred, tables, **lk, fov_min=cfg.fov_min,
                         fov_max=cfg.fov_max))
+        rand = torch.from_numpy(np.random.default_rng(0).integers(
+            0, 256, (h, w), np.uint8)).to(dev)
+        for (fname, frame), window, sub, frac in itertools.product(
+                (("random", rand), ("rendered", f1)), (5, 21, 63),
+                (True, False), (0, 7)):
+            cases[f"stripe {fname} frame window {window} subpixel {sub:d} "
+                  f"frac {frac}"] = (
+                lambda a=(frame, window, sub, frac):
+                    kstripe.stripe_regression_cuda(*a))
+        levels = {}
+        for lh, lw in level_chain(h, w):
+            lv = levels[(lh, lw)] = mg_level(dev, lh, lw)
+            r, e, wy, wx, dinv = lv
+            cases[f"mg_down level {lh}x{lw}"] = (
+                lambda a=(r, wy, wx, dinv): kmg.mg_down_cuda(*a))
+            cases[f"mg_up level {lh}x{lw}"] = (
+                lambda a=(e, r, wy, wx, dinv): (kmg.mg_up_cuda(*a),))
         for name, fn in cases.items():
-            a = using(libs["other"], fn)()
-            b = using(libs["this"], fn)()
-            diff = [i for i, (x, y) in enumerate(zip(a, b))
-                    if not torch.equal(x, y)]
-            n_maps += len(a)
-            n_diff += len(diff)
-            print(f"{h}x{w} {name}: "
-                  + ("bit-identical" if not diff else f"DIFFER in maps "
-                     f"{diff}, max|diff| " + ", ".join(
-                         f"{float((a[i] - b[i]).abs().max()):.3e}"
-                         for i in diff)), flush=True)
+            n, d = same_maps(libs, f"{h}x{w} {name}", fn)
+            n_maps += n
+            n_diff += d
         if (h, w) == SHAPES[0]:
             lk = dict(period=LOCK_T, win_u=win, win_v=9)
             timed = {
+                "stripe (window 21, subpixel)":
+                    lambda: kstripe.stripe_regression_cuda(f1, 21),
                 "open-loop step": lambda: kstep.dynamic_step_open_cuda(
                     *step_args, **kw),
                 "track launch (ablate track)":
@@ -165,15 +213,20 @@ def main(argv=None) -> int:
                     f1, pred, tables, **lk, fov_min=cfg.fov_min,
                     fov_max=cfg.fov_max)}
             for name, fn in timed.items():
-                t = {k: [] for k in libs}
-                for k in ("other", "this", "this", "other"):
-                    t[k].append(1e3 * devtime.graph_time_s(using(libs[k],
-                                                                 fn)))
-                print(f"time {name} at {h}x{w}, kernels alone (graph of "
-                      f"20), this vs other: {sum(t['this']) / 2:.4f} ms "
-                      f"({t['this'][0]:.4f}, {t['this'][1]:.4f}) vs "
-                      f"{sum(t['other']) / 2:.4f} ms ({t['other'][0]:.4f}, "
-                      f"{t['other'][1]:.4f})", flush=True)
+                time_turns(libs, f"{name} at {h}x{w}", fn)
+        for (lh, lw), (r, e, wy, wx, dinv) in levels.items():
+            time_turns(libs, f"mg_down at {lh}x{lw}",
+                       lambda a=(r, wy, wx, dinv): kmg.mg_down_cuda(*a))
+            time_turns(libs, f"mg_up at {lh}x{lw}",
+                       lambda a=(e, r, wy, wx, dinv): kmg.mg_up_cuda(*a))
+            if (lh, lw) == SHAPES[0]:
+                sets = [tuple(x.clone() for x in (e, r, wy, wx, dinv))
+                        for _ in range(COLD_SETS)]
+                time_turns(libs, f"mg_up cold ({COLD_SETS} input sets "
+                           f"rotated) at {lh}x{lw}",
+                           devtime.rotating(lambda a: kmg.mg_up_cuda(*a),
+                                            sets))
+                del sets
     print(f"{n_maps - n_diff} of {n_maps} maps bit-identical on {card}")
     return 1 if n_diff else 0
 
