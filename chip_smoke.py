@@ -15,7 +15,8 @@ Run from the root of a checkout. In order it:
    the multigrid kernels), at the bars of the CPU parity tests; stripe at
    windows 5, 21 and 63, the multigrid kernels at the three level shapes
    of each shape's chain (1024x1280, 512x640, 256x320; 1000x1270,
-   500x635, 250x318); the
+   500x635, 250x318), heterodyne at the reference's 3 frequencies x 4
+   steps and at HET_GENERIC's 3 x 5 (the kernel's generic instance); the
    stripe and step kernels also in fast sub-pixel mode (``frac_bits=7``)
    against the quantizing plain versions; the access-pattern floors
    exactly; and the two-kernel locked step (open-loop step, then the
@@ -32,7 +33,8 @@ Run from the root of a checkout. In order it:
    and outputs rotated over COLD_SETS sets (``devtime.rotating``, over
    twice the card's 50 MB L2), beside their L2-resident times;
    ``mg_down`` and ``mg_up`` at each level shape of the 1024x1280 chain,
-   ``mg_up`` cold at 1024x1280, and each multigrid kernel's time per
+   both cold at 1024x1280, heterodyne cold, and each multigrid kernel's
+   time per
    preconditioner call (launches per level x time; per spatial decode in
    phase 5, once ``cg_iters`` is known). Where
    ``torch.profiler`` records CUDA kernels
@@ -115,6 +117,8 @@ N_FRAMES = 30
 N_FRINGE_FRAMES = 10
 LOCK_T = 12.0
 HET = HeterodyneConfig()
+#: A heterodyne configuration that takes the kernel's generic instance.
+HET_GENERIC = HeterodyneConfig(phase_steps=5)
 #: Stripe windows held against the plain version: check_window's ends and
 #: the reference's 21.
 STRIPE_WINDOWS = (5, 21, 63)
@@ -349,17 +353,22 @@ def parity(dev, errs, inputs):
                                                           **pk),
                     LOCK_OUT, errs, flips=LOCK_FLIPS)
 
-        fringes, _, _ = synth.render_fringe_stack(
-            calib, cfg, synth.sphere_surface(), HET.periods(cfg.pro_w),
-            HET.phase_steps, noise_sigma=1.0)
-        fr = torch.from_numpy(fringes).to(dev)
-        fine = HET.periods(cfg.pro_w)[0]
-        for min_mod in (None, 2.0):
-            got = khet.heterodyne_decode_cuda(fr, tables, cfg, HET, min_mod)
-            want = khet.heterodyne_decode_ref(fr, tables, cfg, HET, min_mod)
-            compare("heterodyne", got[3:] + got[:3], want[3:] + want[:3],
-                    ("proj_u", "x", "y", "z"), errs, flips=HET_FLIPS,
-                    flip_order=fine)
+        for het in (HET_GENERIC, HET):
+            fringes, _, _ = synth.render_fringe_stack(
+                calib, cfg, synth.sphere_surface(), het.periods(cfg.pro_w),
+                het.phase_steps, noise_sigma=1.0)
+            fr = torch.from_numpy(fringes).to(dev)
+            fine = het.periods(cfg.pro_w)[0]
+            log(f"  heterodyne {len(het.fringe_counts)} frequencies x "
+                f"{het.phase_steps} steps")
+            for min_mod in (None, 2.0):
+                got = khet.heterodyne_decode_cuda(fr, tables, cfg, het,
+                                                  min_mod)
+                want = khet.heterodyne_decode_ref(fr, tables, cfg, het,
+                                                  min_mod)
+                compare("heterodyne", got[3:] + got[:3],
+                        want[3:] + want[:3], ("proj_u", "x", "y", "z"),
+                        errs, flips=HET_FLIPS, flip_order=fine)
 
         # A rendered depth map (the heterodyne decode's) with 5% holes.
         depth = want[2].clone()
@@ -569,8 +578,18 @@ def timing(inputs, card, use_profiler=True):
             f"rotated over {COLD_SETS} sets)")
     del sets
 
+    # Heterodyne cold: its 12 planes and 4 maps, 36.7 MB a set.
+    sets = [fr.clone() for _ in range(COLD_SETS)]
+    cold = alone_ms(devtime.rotating(
+        lambda a: khet.heterodyne_decode_cuda(a, tables, cfg, HET), sets),
+        "heterodyne")
+    del sets
+    log(f"time heterodyne at 1024x1280, kernels alone (graph): L2-resident "
+        f"{out['heterodyne'][2]:.4f} ms, cold {cold:.4f} ms (inputs and "
+        f"outputs rotated over {COLD_SETS} sets)")
+
     # The multigrid kernels at each level shape of the reference chain
-    # (kernels alone), mg_up also cold at full size, and each kernel's
+    # (kernels alone), both also cold at full size, and each kernel's
     # time per preconditioner call: launches per level x time.
     level_ms = {}
     for (lh, lw), (lr, le, lwy, lwx, ldinv) in inputs["levels"].items():
@@ -584,12 +603,15 @@ def timing(inputs, card, use_profiler=True):
                         for k, v in level_ms[(lh, lw)].items()))
     sets = [tuple(a.clone() for a in (e, r, wy, wx, dinv))
             for _ in range(COLD_SETS)]
-    cold = alone_ms(devtime.rotating(lambda a: kmg.mg_up_cuda(*a), sets),
-                    "mg_up")
+    cold = {"mg_down": alone_ms(devtime.rotating(
+                lambda a: kmg.mg_down_cuda(*a[1:]), sets), "mg_down"),
+            "mg_up": alone_ms(devtime.rotating(
+                lambda a: kmg.mg_up_cuda(*a), sets), "mg_up")}
     del sets
-    log(f"time mg_up at 1024x1280, kernels alone (graph): L2-resident "
-        f"{level_ms[SHAPES[0]]['mg_up']:.4f} ms, cold {cold:.4f} ms (inputs "
-        f"and output rotated over {COLD_SETS} sets)")
+    for k, v in cold.items():
+        log(f"time {k} at 1024x1280, kernels alone (graph): L2-resident "
+            f"{level_ms[SHAPES[0]][k]:.4f} ms, cold {v:.4f} ms (inputs and "
+            f"outputs rotated over {COLD_SETS} sets)")
     visits = mg_kernel_visits(*SHAPES[0])
     log("multigrid kernels per preconditioner call at 1024x1280 (launches "
         "per level x kernels-alone time): " + "; ".join(

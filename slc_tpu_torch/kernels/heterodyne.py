@@ -3,14 +3,19 @@ heterodyne``).
 
 Source note. Replaces slc_tpu/pallas/heterodyne.py:201
 ``heterodyne_decode_pallas``. The CUDA kernel (csrc/heterodyne.cu) runs
-one thread per pixel: the N-step phase of every frequency -> the minimum
-modulation over the frequencies -> the beat cascade and its unwrap down
-the left spine -> the modulation mask -> triangulation, with C and D
-rebuilt from their six coefficients. It ports the plain path's semantics,
-not the TPU's workarounds: ``atan2f`` and IEEE division instead of the
-polynomial atan2 and the Newton reciprocal. On the card it is bound by
-device memory: F*N u8 planes in, 4 f32 maps out, 28 B/px at the
-reference's 3 frequencies x 4 steps.
+four neighbouring pixels of a row a thread, one 4-byte load per plane and
+one float4 store per map: the N-step phase of every frequency -> the
+minimum modulation over the frequencies -> the beat cascade and its
+unwrap down the left spine -> the modulation mask -> triangulation, with
+C and D rebuilt from their six coefficients. The reference's 3
+frequencies x 4 steps take an instance with its loops unrolled; any
+other (F, N) up to MAX_FREQS x MAX_STEPS a generic instance. It ports the
+plain path's semantics, not the TPU's workarounds: ``atan2f`` and IEEE
+division instead of the polynomial atan2 and the Newton reciprocal. On
+the card it moves F*N u8 planes in and 4 f32 maps out, 28 B/px at the
+reference's 3 frequencies x 4 steps, but its instruction throughput
+binds it more: three atan2f and nine IEEE divisions a pixel,
+each with its checks and slow-path branches.
 
 ``heterodyne_decode`` dispatches on the device of its input: CPU tensors
 take the plain PyTorch version, CUDA tensors the kernel (or it raises).

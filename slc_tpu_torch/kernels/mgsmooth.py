@@ -4,17 +4,18 @@ descent (``mg_down``) and the ascent (``mg_up``) of ops.unwrap_spatial's
 
 Source note. Replaces slc_tpu/pallas/mgsmooth.py:149 ``mg_down_pallas``
 and :178 ``mg_up_pallas``. The CUDA kernels (csrc/mgsmooth.cu) work on
-2-D tiles with a 2-px halo in both directions (the TPU kernels held
-whole rows and needed a row halo only): ``mg_down`` on 32x16 tiles, sweep
-1 on tile+2, sweep 2 on tile+1, the residual on the tile; ``mg_up`` on
-128x40 tiles at full size (128x8 on smaller levels), a thread four
-columns of a strip of rows, e and wx staged in 16-byte chunks, r, dinv
-and wy in registers, post-smooth 1 on tile+1 and 2 on the tile. Each
-moves 24 B/px of device memory (mg_down: r, wy, wx, dinv in, e and res
-out; mg_up: e, r, wy, wx, dinv in, e out) and is bound by it; the plain
-versions stream ~25 full-image maps per level. The kernels round every
-operation on its own, in the plain path's association, so they match it
-to about an ulp.
+the same 2-D tiles with a 2-px halo in both directions (the TPU kernels
+held whole rows and needed a row halo only), in two passes as the TPU
+kernels make them: a sweep on tile+1, then on the tile ``mg_up``'s second
+post-smooth or ``mg_down``'s e and r - A e. 128x40 tiles at full size
+(128x8 on smaller levels), a thread four columns of a strip of rows, r,
+dinv and wy in its registers, wx staged in 16-byte chunks; ``mg_up``
+stages e too, ``mg_down`` makes sweep 1 from e = 0, (omega * dinv) * r,
+from the registers and stages only its halo. Each moves 24 B/px of
+device memory (mg_down: r, wy, wx, dinv in, e and res out; mg_up: e, r,
+wy, wx, dinv in, e out) and is bound by it; the plain versions stream
+~25 full-image maps per level. The kernels round every operation on its
+own, in the plain path's association, so they match it bit for bit.
 
 ``mg_down`` and ``mg_up`` dispatch on the device of ``r``: CPU tensors
 take the plain PyTorch version, CUDA tensors the kernel (or it raises).

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
 the CPU tests' small shapes (96x160 and a ragged 90x150; the track
-launch also at 1000x1270, the multigrid kernels at 97x201, the floors at
-widths 1270-1280). Marked
+launch also at 1000x1270, the heterodyne decode at 97x157 and at 3 x 5
+steps, the multigrid kernels at 97x201 and at the level shapes of both
+of chip_smoke.py's chains, the floors at widths 1270-1280). Marked
 ``cuda``: each test skips where there is no card. On the card:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -118,14 +119,17 @@ def test_step_kernels(dev, shape, reference_semantics):
         _close(got[i:i + 1], want[i:i + 1], bar)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + [(97, 157)])
 @pytest.mark.parametrize("min_mod", [None, 2.0])
-def test_heterodyne_kernel(dev, shape, min_mod):
+@pytest.mark.parametrize("steps", [4, 5])
+def test_heterodyne_kernel(dev, shape, min_mod, steps):
     """Beat-order flips pinned as tests/conftest.py:40-61 pins them: at
     most 8, each exactly +-1 fine order, no 2x2 block; x, y, z 4e-3 off
-    them, P 2e-3."""
+    them, P 2e-3. 3 x 4 steps take the kernel's unrolled instance, 3 x 5
+    its generic one; widths 150 and 157 its element-wise loads and
+    stores."""
     cfg, calib, tables = _setup(*shape, dev)
-    het = HeterodyneConfig()
+    het = HeterodyneConfig(phase_steps=steps)
     imgs, _, _ = synth.render_fringe_stack(
         calib, cfg, synth.sphere_surface(), het.periods(cfg.pro_w),
         het.phase_steps, noise_sigma=1.0)
@@ -154,10 +158,14 @@ def test_bilateral_kernel(dev, shape):
            1e-4)
 
 
-@pytest.mark.parametrize("shape", SHAPES + [(97, 201)])
+@pytest.mark.parametrize("shape", SHAPES + [(97, 201), (1024, 1280),
+                                   (512, 640), (256, 320), (1000, 1270),
+                                   (500, 635), (250, 318)])
 def test_mg_level_kernels(dev, shape):
     """The level kernels round every operation as the plain ops do: 2e-6
-    on O(1) data (tests/test_pallas.py:404-437)."""
+    on O(1) data (tests/test_pallas.py:404-437). 1024x1280 and 1000x1270
+    take the 128x40 tiles, the other shapes the 128x8 ones; the widths
+    not a multiple of 4, the element-wise loads and stores."""
     rng = np.random.default_rng(0)
     q = torch.from_numpy(rng.uniform(0.1, 1.0, shape).astype(np.float32))
     wy, wx = U.edge_weights(q.to(dev))

@@ -4,7 +4,9 @@ tests/test_decode.py:155-175, and ``decode_heterodyne_frame`` against
 the XLA path and against the Pallas kernel in interpret mode. Beat-order
 flips are pinned by count (conftest.assert_heterodyne_parity: at most 8,
 each exactly +-1 fine order, no 2x2 block); z and x 4e-3, y 1e-3 off
-them, the bars of tests/test_pallas.py:103-120."""
+them, the bars of tests/test_pallas.py:103-120. The frame decode also
+runs at 3 frequencies x 5 steps, which the CUDA kernel's generic instance
+takes."""
 
 import numpy as np
 import pytest
@@ -58,13 +60,13 @@ def test_heterodyne_unwrap_noisy_matches_jax():
     assert np.abs(got - x).max() < 0.1
 
 
-def _scene(h, w):
+def _scene(h, w, steps=4):
     kw = dict(cam_h=h, cam_w=w, pro_h=96, pro_w=PRO_W, gray_bits=5)
     jcfg, cfg = JConfig(**kw), SystemConfig(**kw)
     cal = dict(cam_h=h, cam_w=w, pro_h=96, pro_w=PRO_W)
     jc = jcalib.synthetic_calibration(**cal)
     tc = tcalib.synthetic_calibration(**cal)
-    het = JHet()
+    het = JHet(phase_steps=steps)
     imgs, _, _ = jsynth.render_fringe_stack(
         jc, jcfg, jsynth.sphere_surface(), het.periods(PRO_W),
         het.phase_steps, noise_sigma=1.0)
@@ -80,14 +82,18 @@ def _assert_parity(got, x, y, z, pu):
     np.testing.assert_allclose(got.y.numpy()[m], np.asarray(y)[m], atol=1e-3)
 
 
-@pytest.mark.parametrize("shape", [(96, 160), (90, 150)])
+@pytest.mark.parametrize(
+    "shape,steps", [((96, 160), 4), ((90, 150), 4), ((96, 160), 5),
+                    ((90, 150), 5)],
+    ids=["shape0", "shape1", "shape0-steps5", "shape1-steps5"])
 @pytest.mark.parametrize("min_mod", [2.0, None])
-def test_decode_heterodyne_frame_matches_jax(shape, min_mod):
-    jcfg, cfg, jt, tt, imgs = _scene(*shape)
+def test_decode_heterodyne_frame_matches_jax(shape, steps, min_mod):
+    jcfg, cfg, jt, tt, imgs = _scene(*shape, steps)
     got = decode_heterodyne_frame(torch.from_numpy(imgs), tt, cfg,
-                                  HeterodyneConfig(), min_modulation=min_mod)
+                                  HeterodyneConfig(phase_steps=steps),
+                                  min_modulation=min_mod)
 
-    xla = j_decode(jnp.asarray(imgs), jt, jcfg, JHet(),
+    xla = j_decode(jnp.asarray(imgs), jt, jcfg, JHet(phase_steps=steps),
                    min_modulation=min_mod, use_pallas=False)
     _assert_parity(got, xla.x, xla.y, xla.z, xla.proj_u)
 
@@ -95,7 +101,7 @@ def test_decode_heterodyne_frame_matches_jax(shape, min_mod):
                          jnp.float32(0.0), jnp.float32(0.0)]).reshape(1, 8)
     x, y, z, pu = heterodyne_decode_pallas(
         jnp.asarray(imgs), jt.c, jt.d, scalars,
-        periods=JHet().periods(PRO_W), extent=float(PRO_W), n_steps=4,
+        periods=JHet().periods(PRO_W), extent=float(PRO_W), n_steps=steps,
         min_modulation=min_mod, fov_min=jcfg.fov_min, fov_max=jcfg.fov_max,
         block_h=32, interpret=True)
     _assert_parity(got, x, y, z, pu)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Compare the stripe, tracking-step, lock and multigrid launches of this
-checkout's kernel library with those of another checkout of
-slc_tpu_torch, on one CUDA card.
+"""Compare the stripe, tracking-step, lock, multigrid and heterodyne
+launches of this checkout's kernel library with those of another checkout
+of slc_tpu_torch, on one CUDA card.
 
     python3 tools/compare_lock_builds.py OTHER_CHECKOUT
 
@@ -23,18 +23,25 @@ interface is the same), at chip_smoke.py's two shapes, 1024x1280 and
    at windows (3, 3) and (63, 63), with the gate on and off; ``mg_down``'s
    two maps and ``mg_up``'s one on random levels (chip_smoke.py's
    ``mg_level``) at the three multigrid level shapes of each shape's
-   chain (1024x1280, 512x640, 256x320; 1000x1270, 500x635, 250x318);
-   every output map must be equal;
+   chain (1024x1280, 512x640, 256x320; 1000x1270, 500x635, 250x318); the
+   heterodyne decode's four maps, ``min_modulation`` 2.0 and None, at the
+   reference's 3 frequencies x 4 steps and at HETS' other (F, N) (the
+   kernel's generic instance), on a rendered fringe stack
+   (``synth.render_fringe_stack``) and a random u8 one; every output map
+   must be equal;
 2. the kernels-alone device time (``devtime.graph_time_s``, 20 calls in
    one CUDA graph) of, at 1024x1280, the stripe regression (window 21,
    sub-pixel), the open-loop step, the locked step's track launch
    (``ablate="track"``), the step up to the lock's DC (``ablate="dc"``),
-   the locked step and the standalone lock; of ``mg_down`` and ``mg_up``
-   at each level shape; and of ``mg_up`` cold at 1024x1280 (inputs and
-   output rotated over COLD_SETS sets, ``devtime.rotating``); the two
-   libraries in turns (other, this, this, other).
+   the locked step, the standalone lock and the heterodyne decode (3 x 4),
+   the last also cold (inputs and outputs rotated over COLD_SETS sets,
+   ``devtime.rotating``); of ``mg_down`` and ``mg_up`` at each level
+   shape, and both cold at 1024x1280; the two libraries in turns (other,
+   this, this, other).
 
-Exits non-zero if any map differs.
+``--only WORD[,WORD...]`` keeps the cases and timed lines whose name
+holds one of the words (``--only heterodyne,mg_down``), to time a variant
+of one kernel. Exits non-zero if any map differs.
 """
 
 from __future__ import annotations
@@ -56,9 +63,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from chip_smoke import level_chain, mg_level  # noqa: E402
 from slc_tpu_torch import devtime, synth  # noqa: E402
 from slc_tpu_torch.calib import build_tables, synthetic_calibration  # noqa
-from slc_tpu_torch.config import REFERENCE_CONFIG  # noqa: E402
+from slc_tpu_torch.config import REFERENCE_CONFIG, HeterodyneConfig  # noqa
 from slc_tpu_torch.kernels import _build  # noqa: E402
 from slc_tpu_torch.kernels import dynamic_step as kstep  # noqa: E402
+from slc_tpu_torch.kernels import heterodyne as khet  # noqa: E402
 from slc_tpu_torch.kernels import mgsmooth as kmg  # noqa: E402
 from slc_tpu_torch.kernels import phaselock as kpl  # noqa: E402
 from slc_tpu_torch.kernels import stripe as kstripe  # noqa: E402
@@ -66,8 +74,14 @@ from slc_tpu_torch.ops.demod import suggest_lock_window  # noqa: E402
 
 SHAPES = ((1024, 1280), (1000, 1270))
 LOCK_T = 12.0
-#: Input sets of mg_up's cold timing: 24 B/px each, ~189 MB at 1024x1280.
+#: Input sets of the cold timings: 24 B/px for the multigrid kernels
+#: (~189 MB in all at 1024x1280), 28 B/px for heterodyne (~220 MB).
 COLD_SETS = 6
+#: Heterodyne configurations: the reference's 3 frequencies x 4 steps, and
+#: two that take the kernel's generic instance.
+HETS = {"3 x 4": HeterodyneConfig(),
+        "3 x 5": HeterodyneConfig(phase_steps=5),
+        "4 x 4": HeterodyneConfig(fringe_counts=(64, 58, 55, 54))}
 
 
 def other_library(root: str):
@@ -119,7 +133,15 @@ def time_turns(libs, tag, fn):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", help="root of the other checkout")
+    ap.add_argument("--only", default="",
+                    help="comma-separated words: keep the cases and timed "
+                         "lines whose name holds one")
     args = ap.parse_args(argv)
+    words = [x for x in args.only.split(",") if x]
+
+    def wanted(name):
+        return not words or any(x in name for x in words)
+
     if not torch.cuda.is_available():
         print("compare_lock_builds: CUDA is not available", file=sys.stderr)
         return 1
@@ -183,6 +205,19 @@ def main(argv=None) -> int:
                   f"frac {frac}"] = (
                 lambda a=(frame, window, sub, frac):
                     kstripe.stripe_regression_cuda(*a))
+        for (hname, het), (sname, rendered) in itertools.product(
+                HETS.items(), (("rendered", True), ("random", False))):
+            stack = synth.render_fringe_stack(
+                calib, cfg, synth.sphere_surface(), het.periods(cfg.pro_w),
+                het.phase_steps, noise_sigma=1.0)[0] if rendered else \
+                np.random.default_rng(1).integers(
+                    0, 256, (het.num_images, h, w), np.uint8)
+            stack = torch.from_numpy(stack).to(dev)
+            for mm in (2.0, None):
+                cases[f"heterodyne {hname} {sname} stack min_modulation "
+                      f"{mm}"] = (
+                    lambda a=(stack, tables, cfg, het, mm):
+                        khet.heterodyne_decode_cuda(*a))
         levels = {}
         for lh, lw in level_chain(h, w):
             lv = levels[(lh, lw)] = mg_level(dev, lh, lw)
@@ -192,6 +227,8 @@ def main(argv=None) -> int:
             cases[f"mg_up level {lh}x{lw}"] = (
                 lambda a=(e, r, wy, wx, dinv): (kmg.mg_up_cuda(*a),))
         for name, fn in cases.items():
+            if not wanted(name):
+                continue
             n, d = same_maps(libs, f"{h}x{w} {name}", fn)
             n_maps += n
             n_diff += d
@@ -212,20 +249,43 @@ def main(argv=None) -> int:
                 "standalone lock": lambda: kpl.phase_lock_cuda(
                     f1, pred, tables, **lk, fov_min=cfg.fov_min,
                     fov_max=cfg.fov_max)}
+            fringes = torch.from_numpy(synth.render_fringe_stack(
+                calib, cfg, synth.sphere_surface(),
+                HETS["3 x 4"].periods(cfg.pro_w), 4, noise_sigma=1.0)[0]
+            ).to(dev)
+            timed["heterodyne (3 x 4)"] = lambda: khet.heterodyne_decode_cuda(
+                fringes, tables, cfg, HETS["3 x 4"])
             for name, fn in timed.items():
-                time_turns(libs, f"{name} at {h}x{w}", fn)
+                if wanted(name):
+                    time_turns(libs, f"{name} at {h}x{w}", fn)
+            if wanted("heterodyne (3 x 4) cold"):
+                sets = [fringes.clone() for _ in range(COLD_SETS)]
+                time_turns(libs, f"heterodyne (3 x 4) cold ({COLD_SETS} "
+                           f"input sets rotated) at {h}x{w}",
+                           devtime.rotating(
+                               lambda a: khet.heterodyne_decode_cuda(
+                                   a, tables, cfg, HETS["3 x 4"]), sets))
+                del sets
         for (lh, lw), (r, e, wy, wx, dinv) in levels.items():
-            time_turns(libs, f"mg_down at {lh}x{lw}",
-                       lambda a=(r, wy, wx, dinv): kmg.mg_down_cuda(*a))
-            time_turns(libs, f"mg_up at {lh}x{lw}",
-                       lambda a=(e, r, wy, wx, dinv): kmg.mg_up_cuda(*a))
+            if wanted("mg_down"):
+                time_turns(libs, f"mg_down at {lh}x{lw}",
+                           lambda a=(r, wy, wx, dinv): kmg.mg_down_cuda(*a))
+            if wanted("mg_up"):
+                time_turns(libs, f"mg_up at {lh}x{lw}",
+                           lambda a=(e, r, wy, wx, dinv): kmg.mg_up_cuda(*a))
             if (lh, lw) == SHAPES[0]:
                 sets = [tuple(x.clone() for x in (e, r, wy, wx, dinv))
                         for _ in range(COLD_SETS)]
-                time_turns(libs, f"mg_up cold ({COLD_SETS} input sets "
-                           f"rotated) at {lh}x{lw}",
-                           devtime.rotating(lambda a: kmg.mg_up_cuda(*a),
-                                            sets))
+                if wanted("mg_down"):
+                    time_turns(libs, f"mg_down cold ({COLD_SETS} input sets "
+                               f"rotated) at {lh}x{lw}",
+                               devtime.rotating(lambda a: kmg.mg_down_cuda(
+                                   *a[1:]), sets))
+                if wanted("mg_up"):
+                    time_turns(libs, f"mg_up cold ({COLD_SETS} input sets "
+                               f"rotated) at {lh}x{lw}",
+                               devtime.rotating(lambda a: kmg.mg_up_cuda(*a),
+                                                sets))
                 del sets
     print(f"{n_maps - n_diff} of {n_maps} maps bit-identical on {card}")
     return 1 if n_diff else 0
