@@ -8,7 +8,9 @@ Run from the root of a checkout. In order it:
 
 1. requires CUDA and prints the card (``nvidia-smi``), torch and CUDA;
 2. builds the ten CUDA kernels from ``slc_tpu_torch/kernels/csrc`` into
-   one library (one nvcc per source, all started together);
+   one library (one nvcc per source, all started together), and the
+   native host I/O library from ``slc_tpu_torch/io/native/slc_io.cpp``
+   (g++), and prints the host's CPU;
 3. holds each kernel against its plain PyTorch version, both on the card,
    at the reference shape 1024x1280 and a ragged 1000x1270, on rendered
    inputs (a random frame for the stripe kernel, random O(1) levels for
@@ -33,7 +35,8 @@ Run from the root of a checkout. In order it:
    and outputs rotated over COLD_SETS sets (``devtime.rotating``, over
    twice the card's 50 MB L2), beside their L2-resident times;
    ``mg_down`` and ``mg_up`` at each level shape of the 1024x1280 chain,
-   both cold at 1024x1280, heterodyne cold, and each multigrid kernel's
+   both cold at 1024x1280, heterodyne and bilateral cold, and each
+   multigrid kernel's
    time per
    preconditioner call (launches per level x time; per spatial decode in
    phase 5, once ``cg_iters`` is known). Where
@@ -52,12 +55,21 @@ Run from the root of a checkout. In order it:
    broadcast add), checked equal to the plain version; null for the
    other kernels, which no single call computes;
 5. runs ``python -m slc_tpu_torch run`` through ``main()``, each run with
-   the launch counts set to 0 just before it and read just after, and
-   each count required to equal the calls the runner makes:
+   the launch counts and the native I/O counters (``io.native.COUNTS``)
+   set to 0 just before it and read just after, and each count required
+   to equal what the runner makes: the pool delivers every dynamic frame
+   after frame 0, the codec reads frame 0's planes and the 2-3 single
+   frames the runner reads itself, the XYZ writer writes each cloud:
    - gray mode on a 30-frame moving-plane dataset, phase lock on, off,
      and on with ``--fast-subpixel``: each locked depth error at the last
      frame must be below 0.05 scene units and below half the
-     free-running error;
+     free-running error; each run's host legs per frame are printed (the
+     BMP read by the native pool and by the numpy codec on the same
+     files, the npz write and the device-to-host copy);
+   - the locked run again with ``--out-format xyz`` (the CLI's default):
+     one ``.txt`` per frame, the last frame's lines one per pixel with z
+     > 0 and each value within 5e-8 of the locked npz run's maps; its fps
+     and writer time per frame are printed;
    - on a 10-frame dataset with the heterodyne fringe stack,
      ``--mode heterodyne`` (lock on): the median depth error of frame 0
      and of the last frame must be below 0.05;
@@ -94,6 +106,8 @@ from slc_tpu_torch import devtime, synth
 from slc_tpu_torch.__main__ import main as slc_main
 from slc_tpu_torch.calib import build_tables, synthetic_calibration
 from slc_tpu_torch.config import REFERENCE_CONFIG, HeterodyneConfig
+from slc_tpu_torch.io import native as native_io
+from slc_tpu_torch.io.bmp import _read_bmp_numpy
 from slc_tpu_torch.io.dataset import write_replay_dataset
 from slc_tpu_torch.io.opencv_yaml import save_calibration
 from slc_tpu_torch.kernels import _build
@@ -162,6 +176,9 @@ STEP_OUT = ("proj_u", "strip_w", "strip_b", "z", "x", "y")
 #: Such isolated flips are pinned by count per comparison at 1.3 MP, as
 #: slc_tpu pins heterodyne beat-order flips (tests/conftest.py:40-61).
 LOCK_FLIPS = 32
+#: XYZ clouds hold 7 decimals: half a unit of the 7th, plus half an ulp of
+#: the float64 the text parses to.
+XYZ_BAR = 5e-8 + 1e-12
 #: Heterodyne beat-order flips: at most this many per comparison, each
 #: exactly one fine fringe order, none in a 2x2 block
 #: (tests/conftest.py:40-61).
@@ -233,6 +250,15 @@ def compare(name, got, want, keys, errs, flips=0, flip_order=None):
             n_over = int((d > bar).sum())
         require(n_over == 0, f"{name}.{k}: {n_over} px over the bar {bar}")
         errs[name] = max(errs.get(name, 0.0), err)
+
+
+def host_cpu() -> str:
+    """The host CPU's model name, from /proc/cpuinfo."""
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if line.startswith("model name"):
+                return line.split(":", 1)[1].strip()
+    return "unknown"
 
 
 def fmt_ms(ms):
@@ -588,6 +614,15 @@ def timing(inputs, card, use_profiler=True):
         f"{out['heterodyne'][2]:.4f} ms, cold {cold:.4f} ms (inputs and "
         f"outputs rotated over {COLD_SETS} sets)")
 
+    # Bilateral cold: one f32 map in and one out, 10.5 MB a set.
+    sets = [depth.clone() for _ in range(COLD_SETS)]
+    cold = alone_ms(devtime.rotating(kbil.bilateral_filter_cuda, sets),
+                    "bilateral")
+    del sets
+    log(f"time bilateral at 1024x1280, kernels alone (graph): L2-resident "
+        f"{out['bilateral'][2]:.4f} ms, cold {cold:.4f} ms (inputs and "
+        f"outputs rotated over {COLD_SETS} sets)")
+
     # The multigrid kernels at each level shape of the reference chain
     # (kernels alone), both also cold at full size, and each kernel's
     # time per preconditioner call: launches per level x time.
@@ -689,25 +724,72 @@ def read_counts():
     return {k: w.launches for k, w in WRAPPERS.items()}
 
 
-def counted_run(argv, expected_fn):
-    """One ``main(["run", ...])`` with every launch count set to 0 just
-    before it and read just after; the counts must equal
-    ``expected_fn()`` (evaluated after the run) exactly."""
+def counted_run(argv, expected_fn, io_expected, out_format="npz"):
+    """One ``main(["run", ...])`` with every launch count and every
+    native I/O counter set to 0 just before it and read just after; the
+    launch counts must equal ``expected_fn()`` (evaluated after the run)
+    and the native counters ``io_expected`` exactly."""
     reset_counts()
-    rc = slc_main(["run", *argv, "--out-format", "npz", "--device", "cuda"])
+    native_io.reset_counts()
+    rc = slc_main(["run", *argv, "--out-format", out_format, "--device",
+                   "cuda"])
     got = read_counts()
+    io_got = dict(native_io.COUNTS)
     require(rc == 0, f"run {argv} exited {rc}")
     want = {k: 0 for k in WRAPPERS}
     want.update(expected_fn())
     log(f"e2e launches {got}")
     require(got == want, f"launch counts {got} != expected {want}")
+    io_want = {k: 0 for k in native_io.COUNTS}
+    io_want.update(io_expected)
+    log(f"e2e native I/O {io_got}")
+    require(io_got == io_want, f"native I/O counts {io_got} != expected "
+                               f"{io_want}")
     return got
 
 
-def frame_records(out):
+def native_expected(planes, n_frames, lock=True, xyz=False):
+    """The native I/O counts of one run: the pool delivers every dynamic
+    frame after frame 0; the codec reads frame 0's ``planes``, the period
+    diagnostic's frame 0 (lock on), the tracker's frame 0 and the warm-up
+    step's frame 1; the XYZ writer writes each of the ``n_frames``
+    clouds."""
+    return {"loader_frames": n_frames - 1,
+            "bmp_reads": planes + int(lock) + 2,
+            "xyz_writes": n_frames if xyz else 0}
+
+
+def run_records(out):
     with open(os.path.join(out, "metrics.jsonl")) as f:
-        recs = [json.loads(line) for line in f]
-    return [x for x in recs if "frame" in x]
+        return [json.loads(line) for line in f]
+
+
+def frame_records(out):
+    return [x for x in run_records(out) if "frame" in x]
+
+
+def host_legs(out, ds, h, w):
+    """A run's host legs, ms per frame: the device-to-host copy and the
+    write of each cloud from its writer summary; and the BMP read of the
+    same dynamic frames (page cache warm), timed here after the run, by
+    the native pool as the runner makes it (8 slots, 4 threads) and by the
+    numpy codec, one file after another."""
+    summary = next(r for r in run_records(out) if r.get("writer"))
+    n = summary["writer_frames"]
+    copy = summary["writer_copy_ms"] / n
+    write = (summary["writer_total_ms"] - summary["writer_copy_ms"]) / n
+    paths = [os.path.join(ds, "cFrame", f"dynaCam{i}.bmp")
+             for i in range(1, N_FRAMES)]
+    t0 = time.perf_counter()
+    for _ in native_io.NativeFrameLoader(paths, h, w, slots=8, threads=4):
+        pass
+    pool = 1e3 * (time.perf_counter() - t0) / len(paths)
+    t0 = time.perf_counter()
+    for path in paths:
+        _read_bmp_numpy(path)
+    numpy_ms = 1e3 * (time.perf_counter() - t0) / len(paths)
+    return {"read_pool": pool, "read_numpy": numpy_ms, "copy": copy,
+            "write": write}
 
 
 def median_err(z, z_gt, margin):
@@ -746,15 +828,17 @@ def gray_runs(launches):
     # timed decode), tracks frame 0 once (init_tracker) and steps once
     # for its warm-up plus once per remaining frame.
     errs = {}
+    planes = 2 * cfg.gray_bits + cfg.phase_steps
+    calib_path = os.path.join(ds, "parameters.yml")
     for name, extra, step in (
             ("locked", [], "dynamic_step_lock"),
             ("free", ["--phase-lock", "off"], "dynamic_step"),
             ("fast", ["--fast-subpixel"], "dynamic_step_lock")):
         out = os.path.join(WORK, name)
         got = counted_run(
-            [ds, "--calib", os.path.join(ds, "parameters.yml"), "--out", out,
-             *extra],
-            lambda: {"grayphase": 2, "stripe": 1, step: N_FRAMES})
+            [ds, "--calib", calib_path, "--out", out, *extra],
+            lambda: {"grayphase": 2, "stripe": 1, step: N_FRAMES},
+            native_expected(planes, N_FRAMES, lock=name != "free"))
         for k, v in got.items():
             launches[k] += v
         z = np.load(os.path.join(out, f"cFrame{N_FRAMES - 1}.npz"))["z"]
@@ -768,10 +852,54 @@ def gray_runs(launches):
             f"step median {statistics.median(steps):.3f} ms, "
             f"fps median {statistics.median(fps):.1f}, "
             f"decode {recs[0]['t_first_frame_ms']:.3f} ms")
+        legs = host_legs(out, ds, cfg.cam_h, cfg.cam_w)
+        log(f"e2e gray {name} host legs, ms per frame (host CPU "
+            f"{host_cpu()}): BMP read {legs['read_pool']:.3f} by the native "
+            f"pool, {legs['read_numpy']:.3f} by the numpy codec (the same "
+            f"{N_FRAMES - 1} files, after the run); npz write "
+            f"{legs['write']:.3f}; device-to-host copy {legs['copy']:.3f} "
+            f"(the run's writer thread)")
     for name in ("locked", "fast"):
         require(errs[name] < 0.05, f"{name} error too large: {errs}")
         require(errs[name] < 0.5 * errs["free"],
                 f"{name} error not below half the free-running one: {errs}")
+
+    # The CLI's default output, XYZ clouds through the native writer, on
+    # the locked run's dataset; its last cloud against the locked npz
+    # run's maps (the same inputs through the same kernels give the same
+    # maps).
+    out = os.path.join(WORK, "xyz")
+    got = counted_run([ds, "--calib", calib_path, "--out", out],
+                      lambda: {"grayphase": 2, "stripe": 1,
+                               "dynamic_step_lock": N_FRAMES},
+                      native_expected(planes, N_FRAMES, xyz=True),
+                      out_format="xyz")
+    for k, v in got.items():
+        launches[k] += v
+    clouds = sorted(f for f in os.listdir(out) if f.endswith(".txt"))
+    require(clouds == sorted(["iFrame.txt"] + [f"cFrame{i}.txt"
+                                               for i in range(1, N_FRAMES)]),
+            f"xyz run wrote {clouds}")
+    maps = np.load(os.path.join(WORK, "locked", f"cFrame{N_FRAMES - 1}.npz"))
+    valid = maps["z"] > 0
+    pts = np.loadtxt(os.path.join(out, f"cFrame{N_FRAMES - 1}.txt"),
+                     dtype=np.float64, ndmin=2)
+    require(pts.shape == (int(valid.sum()), 3),
+            f"xyz cFrame{N_FRAMES - 1}: {pts.shape[0]} lines, "
+            f"{int(valid.sum())} pixels with z > 0")
+    err = max(float(np.abs(pts[:, i] - maps[k][valid].astype(np.float64))
+                    .max()) for i, k in enumerate("xyz"))
+    require(err <= XYZ_BAR, f"xyz values {err} from the maps")
+    recs = frame_records(out)
+    summary = next(r for r in run_records(out) if r.get("writer"))
+    n = summary["writer_frames"]
+    log(f"e2e gray xyz (locked, --out-format xyz): fps median "
+        f"{statistics.median(x['fps'] for x in recs[2:]):.1f}; writer per "
+        f"frame {summary['writer_total_ms'] / n:.3f} ms (device-to-host "
+        f"copy {summary['writer_copy_ms'] / n:.3f}, format and write "
+        f"{(summary['writer_total_ms'] - summary['writer_copy_ms']) / n:.3f}"
+        f"); cFrame{N_FRAMES - 1}.txt {pts.shape[0]} lines, one per pixel "
+        f"with z > 0, values within {err:.3e} of the maps (bar 5e-8)")
 
 
 def mg_kernel_visits(h, w):
@@ -835,7 +963,8 @@ def fringe_runs(dev, launches, level_ms):
     got = counted_run([ds, "--calib", calib_path, "--out", out, "--mode",
                        "heterodyne"],
                       lambda: {"heterodyne": 2, "stripe": 1,
-                               "dynamic_step_lock": N_FRINGE_FRAMES})
+                               "dynamic_step_lock": N_FRINGE_FRAMES},
+                      native_expected(HET.num_images, N_FRINGE_FRAMES))
     for k, v in got.items():
         launches[k] += v
     recs = frame_records(out)
@@ -866,7 +995,8 @@ def fringe_runs(dev, launches, level_ms):
                 "dynamic_step_lock": N_FRINGE_FRAMES}
 
     got = counted_run([ds, "--calib", calib_path, "--out", out, "--mode",
-                       "spatial"], spatial_expected)
+                       "spatial"], spatial_expected,
+                      native_expected(cfg.phase_steps, N_FRINGE_FRAMES))
     for k, v in got.items():
         launches[k] += v
     recs = frame_records(out)
@@ -925,6 +1055,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.lib()
     log(f"build: {time.perf_counter() - t0:.1f} s ({_build.NVCC_FLAGS})")
+    t0 = time.perf_counter()
+    native_io.lib()
+    log(f"build of the native I/O library: {time.perf_counter() - t0:.1f} s "
+        f"({' '.join(native_io.FLAGS)}); host CPU {host_cpu()}")
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)

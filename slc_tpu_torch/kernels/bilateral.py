@@ -1,13 +1,17 @@
 """Hole-aware bilateral depth filter (the spatial decode's last stage).
 
 Source note. Replaces slc_tpu/pallas/bilateral.py:61
-``bilateral_filter_pallas``. The CUDA kernel (csrc/bilateral.cu) gives
-each thread one output pixel of a 32x8 tile staged with a 1-px halo in
-shared memory; the 9 taps, their exponential weights and the hole logic
-stay on chip, so it moves one f32 read and one f32 write, 8 B/px, and is
-bound by device memory. Out-of-image neighbours count as missing, in the
-kernel and in its plain version (ops.filters.bilateral_filter): the
-border semantics of the TPU kernel, where slc_tpu's XLA path wraps.
+``bilateral_filter_pallas``. It moves one f32 read and one f32 write, 8
+B/px, but nine exponentials, nine hole tests and an IEEE division a pixel
+put it nearer the card's issue rate, so the CUDA kernel
+(csrc/bilateral.cu) cuts instructions: each edge weight is computed once
+and taken by both pixels it joins (4 expf a pixel, not 9; bit for bit the
+same weights), a warp walks a strip of rows of a 128-column tile with a
+lane's 4 columns and a rolling 3-row window in registers (float4 loads and
+stores, neighbours' columns by shuffle, no shared memory). Out-of-image
+neighbours count as missing, in the kernel and in its plain version
+(ops.filters.bilateral_filter): the border semantics of the TPU kernel,
+where slc_tpu's XLA path wraps.
 
 ``bilateral_filter`` dispatches on the device of its input: CPU tensors
 take the plain PyTorch version, CUDA tensors the kernel (or it raises).

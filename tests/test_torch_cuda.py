@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
 the CPU tests' small shapes (96x160 and a ragged 90x150; the track
 launch also at 1000x1270, the heterodyne decode at 97x157 and at 3 x 5
-steps, the multigrid kernels at 97x201 and at the level shapes of both
+steps, the bilateral filter at 97x157, 1x1280 and 1024x1 and with 50%
+holes, the multigrid kernels at 97x201 and at the level shapes of both
 of chip_smoke.py's chains, the floors at widths 1270-1280). Marked
 ``cuda``: each test skips where there is no card. On the card:
 
@@ -148,11 +149,14 @@ def test_heterodyne_kernel(dev, shape, min_mod, steps):
         torch.testing.assert_close(g[keep], e[keep], atol=bar, rtol=0)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-def test_bilateral_kernel(dev, shape):
+@pytest.mark.parametrize("shape", SHAPES + [(97, 157), (1, 1280), (1024, 1)])
+@pytest.mark.parametrize("holes", [0.05, 0.5])
+def test_bilateral_kernel(dev, shape, holes):
+    """Widths 150, 157 and 1 take the kernel's element-wise loads and
+    stores; one row and one column its image borders on every side."""
     rng = np.random.default_rng(0)
     z = 50.0 + rng.normal(0, 0.4, size=shape).astype(np.float32)
-    z[rng.uniform(size=shape) < 0.05] = 0.0
+    z[rng.uniform(size=shape) < holes] = 0.0
     img = torch.from_numpy(z).to(dev)
     _close([kbil.bilateral_filter_cuda(img)], [kbil.bilateral_filter_ref(img)],
            1e-4)

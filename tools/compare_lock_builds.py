@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Compare the stripe, tracking-step, lock, multigrid and heterodyne
-launches of this checkout's kernel library with those of another checkout
-of slc_tpu_torch, on one CUDA card.
+"""Compare the stripe, tracking-step, lock, multigrid, heterodyne and
+bilateral launches of this checkout's kernel library with those of another
+checkout of slc_tpu_torch, on one CUDA card.
 
     python3 tools/compare_lock_builds.py OTHER_CHECKOUT
 
@@ -27,21 +27,27 @@ interface is the same), at chip_smoke.py's two shapes, 1024x1280 and
    heterodyne decode's four maps, ``min_modulation`` 2.0 and None, at the
    reference's 3 frequencies x 4 steps and at HETS' other (F, N) (the
    kernel's generic instance), on a rendered fringe stack
-   (``synth.render_fringe_stack``) and a random u8 one; every output map
-   must be equal;
+   (``synth.render_fringe_stack``) and a random u8 one; the bilateral
+   filter at both shapes and at 97x157, 1x1280 and 1024x1, on random depth
+   with 0%, 10% and 50% holes, a map with -0.0 entries and one with
+   isolated +-inf and NaN, and, at 1024x1280, on the spatial decode's
+   unfiltered z at the reference config; every output map must be equal
+   bit for bit, NaN at the same pixels;
 2. the kernels-alone device time (``devtime.graph_time_s``, 20 calls in
    one CUDA graph) of, at 1024x1280, the stripe regression (window 21,
    sub-pixel), the open-loop step, the locked step's track launch
    (``ablate="track"``), the step up to the lock's DC (``ablate="dc"``),
    the locked step, the standalone lock and the heterodyne decode (3 x 4),
    the last also cold (inputs and outputs rotated over COLD_SETS sets,
-   ``devtime.rotating``); of ``mg_down`` and ``mg_up`` at each level
-   shape, and both cold at 1024x1280; the two libraries in turns (other,
-   this, this, other).
+   ``devtime.rotating``); of the bilateral filter (the 10%-hole map) at
+   both shapes, and cold at 1024x1280; of ``mg_down`` and ``mg_up`` at
+   each level shape, and both cold at 1024x1280; the two libraries in
+   turns (other, this, this, other).
 
 ``--only WORD[,WORD...]`` keeps the cases and timed lines whose name
-holds one of the words (``--only heterodyne,mg_down``), to time a variant
-of one kernel. Exits non-zero if any map differs.
+holds one of the words (``--only heterodyne,mg_down``, ``--only
+bilateral``), to time a variant of one kernel. Exits non-zero if any map
+differs.
 """
 
 from __future__ import annotations
@@ -65,12 +71,14 @@ from slc_tpu_torch import devtime, synth  # noqa: E402
 from slc_tpu_torch.calib import build_tables, synthetic_calibration  # noqa
 from slc_tpu_torch.config import REFERENCE_CONFIG, HeterodyneConfig  # noqa
 from slc_tpu_torch.kernels import _build  # noqa: E402
+from slc_tpu_torch.kernels import bilateral as kbil  # noqa: E402
 from slc_tpu_torch.kernels import dynamic_step as kstep  # noqa: E402
 from slc_tpu_torch.kernels import heterodyne as khet  # noqa: E402
 from slc_tpu_torch.kernels import mgsmooth as kmg  # noqa: E402
 from slc_tpu_torch.kernels import phaselock as kpl  # noqa: E402
 from slc_tpu_torch.kernels import stripe as kstripe  # noqa: E402
 from slc_tpu_torch.ops.demod import suggest_lock_window  # noqa: E402
+from slc_tpu_torch.pipeline import decode_spatial_frame  # noqa: E402
 
 SHAPES = ((1024, 1280), (1000, 1270))
 LOCK_T = 12.0
@@ -82,6 +90,39 @@ COLD_SETS = 6
 HETS = {"3 x 4": HeterodyneConfig(),
         "3 x 5": HeterodyneConfig(phase_steps=5),
         "4 x 4": HeterodyneConfig(fringe_counts=(64, 58, 55, 54))}
+#: Shapes the bilateral filter is also held at: an odd one, one row, one
+#: column.
+BILATERAL_SHAPES = ((97, 157), (1, 1280), (1024, 1))
+
+
+def depth_maps(h, w, dev, seed=0):
+    """The bilateral filter's random inputs at (h, w): depth 50 +- 0.4
+    with 0%, 10% and 50% holes, with 10% -0.0 entries, and with isolated
+    +-inf and NaN (1 in 500 each)."""
+    rng = np.random.default_rng(seed)
+    base = (50.0 + rng.normal(0, 0.4, (h, w))).astype(np.float32)
+    maps = {}
+    for frac in (0.0, 0.1, 0.5):
+        z = base.copy()
+        z[rng.uniform(size=(h, w)) < frac] = 0.0
+        maps[f"{frac:.0%} holes"] = z
+    z = base.copy()
+    z[rng.uniform(size=(h, w)) < 0.1] = -0.0
+    maps["-0.0 entries"] = z
+    z = base.copy()
+    for val in (np.inf, -np.inf, np.nan):
+        z.ravel()[rng.integers(0, h * w, max(1, h * w // 500))] = val
+    maps["+-inf and NaN"] = z
+    return {k: torch.from_numpy(v).to(dev) for k, v in maps.items()}
+
+
+def bits_equal(x, y) -> bool:
+    """Equal bit for bit, NaN (any payload) at the same pixels."""
+    if x.dtype != torch.float32:
+        return torch.equal(x, y)
+    nan = torch.isnan(x)
+    return torch.equal(nan, torch.isnan(y)) and torch.equal(
+        x.view(torch.int32)[~nan], y.view(torch.int32)[~nan])
 
 
 def other_library(root: str):
@@ -110,7 +151,7 @@ def same_maps(libs, tag, fn):
     returns (maps, maps that differ)."""
     a = using(libs["other"], fn)()
     b = using(libs["this"], fn)()
-    diff = [i for i, (x, y) in enumerate(zip(a, b)) if not torch.equal(x, y)]
+    diff = [i for i, (x, y) in enumerate(zip(a, b)) if not bits_equal(x, y)]
     print(f"{tag}: " + ("bit-identical" if not diff else f"DIFFER in maps "
                        f"{diff}, max|diff| " + ", ".join(
                            f"{float((a[i] - b[i]).abs().max()):.3e}"
@@ -226,12 +267,35 @@ def main(argv=None) -> int:
                 lambda a=(r, wy, wx, dinv): kmg.mg_down_cuda(*a))
             cases[f"mg_up level {lh}x{lw}"] = (
                 lambda a=(e, r, wy, wx, dinv): (kmg.mg_up_cuda(*a),))
+        depth = depth_maps(h, w, dev)
+        for dname, z in depth.items():
+            cases[f"bilateral {dname}"] = (
+                lambda z=z: (kbil.bilateral_filter_cuda(z),))
+        if (h, w) == SHAPES[0] and wanted("bilateral"):
+            scene = synth.render_static_scene(
+                calib, cfg, synth.plane_surface(50.0), noise_sigma=1.0)
+            spatial_z = decode_spatial_frame(
+                torch.from_numpy(scene.phase_images).to(dev), tables, cfg,
+                float(cfg.phase_period), filter_depth=False).z
+            cases["bilateral spatial decode z (reference config)"] = (
+                lambda: (kbil.bilateral_filter_cuda(spatial_z),))
         for name, fn in cases.items():
             if not wanted(name):
                 continue
             n, d = same_maps(libs, f"{h}x{w} {name}", fn)
             n_maps += n
             n_diff += d
+        if wanted("bilateral"):
+            z = depth["10% holes"]
+            time_turns(libs, f"bilateral at {h}x{w}",
+                       lambda: kbil.bilateral_filter_cuda(z))
+            if (h, w) == SHAPES[0]:
+                sets = [z.clone() for _ in range(COLD_SETS)]
+                time_turns(libs, f"bilateral cold ({COLD_SETS} input sets "
+                           f"rotated) at {h}x{w}",
+                           devtime.rotating(kbil.bilateral_filter_cuda,
+                                            sets))
+                del sets
         if (h, w) == SHAPES[0]:
             lk = dict(period=LOCK_T, win_u=win, win_v=9)
             timed = {
@@ -287,6 +351,12 @@ def main(argv=None) -> int:
                                devtime.rotating(lambda a: kmg.mg_up_cuda(*a),
                                                 sets))
                 del sets
+    for h, w in BILATERAL_SHAPES if wanted("bilateral") else ():
+        for dname, z in depth_maps(h, w, dev).items():
+            n, d = same_maps(libs, f"{h}x{w} bilateral {dname}",
+                             lambda z=z: (kbil.bilateral_filter_cuda(z),))
+            n_maps += n
+            n_diff += d
     print(f"{n_maps - n_diff} of {n_maps} maps bit-identical on {card}")
     return 1 if n_diff else 0
 
