@@ -65,7 +65,13 @@ Run from the root of a checkout. In order it:
      frame must be below 0.05 scene units and below half the
      free-running error; each run's host legs per frame are printed (the
      BMP read by the native pool and by the numpy codec on the same
-     files, the npz write and the device-to-host copy);
+     files, the npz write and the device-to-host copy). The locked run
+     adds ``--save-depth --preview``: depth_iFrame.npz must hold frame
+     0's z bit for bit and the calibration's cam_k, the two preview BMPs
+     (2 bilateral launches) must be 1024x1280 u8 and the display of the
+     kernel path's render, which must be within 1 of the plain chain's
+     on at most 0.1% of the pixels; the render's time per call is
+     printed;
    - the locked run again with ``--out-format xyz`` (the CLI's default):
      one ``.txt`` per frame, the last frame's lines one per pixel with z
      > 0 and each value within 5e-8 of the locked npz run's maps; its fps
@@ -80,6 +86,16 @@ Run from the root of a checkout. In order it:
      The multigrid kernels must launch 7 times per preconditioner call,
      ``cg_iters + 1`` calls per decode, ``cg_iters`` taken from a direct
      ``unwrap_spatial(..., return_info=True)`` on the same input.
+
+6. multi-scan fusion, which has no kernel (plain PyTorch on the card):
+   ``register_scans`` on 16 scans at 1216x1632 (bench.py's config-5
+   frontend) must reach ATE < 0.05 and < 0.25 x the initial ATE, lie
+   within 2e-3 of the same call on the CPU, and give the same poses bit
+   for bit when the caller has set float32 matmul precision "high"; its
+   wall time and its split by stage are printed; then ``python -m
+   slc_tpu_torch fuse`` through ``main()`` on 3 depth files at 1024x1280
+   must meet tests/test_fuse_cli.py's pose bar and write a fused.txt of
+   more than two scans' pixels.
 
 ``--no-profiler`` leaves ``torch.profiler`` out of phase 4, as where it
 records no CUDA kernel. Any failure ends the script with a non-zero
@@ -102,12 +118,14 @@ import time
 import numpy as np
 import torch
 
-from slc_tpu_torch import devtime, synth
+from slc_tpu_torch import (cloud, devtime, fusion, runner, se3, synth,
+                           visualization)
 from slc_tpu_torch.__main__ import main as slc_main
 from slc_tpu_torch.calib import build_tables, synthetic_calibration
 from slc_tpu_torch.config import REFERENCE_CONFIG, HeterodyneConfig
+from slc_tpu_torch.fusion_frontend import register_scans
 from slc_tpu_torch.io import native as native_io
-from slc_tpu_torch.io.bmp import _read_bmp_numpy
+from slc_tpu_torch.io.bmp import _read_bmp_numpy, read_bmp
 from slc_tpu_torch.io.dataset import write_replay_dataset
 from slc_tpu_torch.io.opencv_yaml import save_calibration
 from slc_tpu_torch.kernels import _build
@@ -136,6 +154,9 @@ HET_GENERIC = HeterodyneConfig(phase_steps=5)
 #: Stripe windows held against the plain version: check_window's ends and
 #: the reference's 21.
 STRIPE_WINDOWS = (5, 21, 63)
+#: The 16-scan fusion phase at 2 MP (bench.py:44's H2MP x W2MP).
+FUSE_SHAPE = (1216, 1632)
+FUSE_SCANS = 16
 
 # Bars (tests/test_torch_*.py): decode P 2e-3, x/y/z 8e-3; strips 1e-5;
 # locked step and standalone lock P 2e-3, z/x 4e-3; open-loop P 2e-4,
@@ -748,14 +769,15 @@ def counted_run(argv, expected_fn, io_expected, out_format="npz"):
     return got
 
 
-def native_expected(planes, n_frames, lock=True, xyz=False):
+def native_expected(planes, n_frames, lock=True, xyz=False, previews=0):
     """The native I/O counts of one run: the pool delivers every dynamic
     frame after frame 0; the codec reads frame 0's ``planes``, the period
     diagnostic's frame 0 (lock on), the tracker's frame 0 and the warm-up
-    step's frame 1; the XYZ writer writes each of the ``n_frames``
-    clouds."""
+    step's frame 1, and writes the ``previews``; the XYZ writer writes
+    each of the ``n_frames`` clouds."""
     return {"loader_frames": n_frames - 1,
             "bmp_reads": planes + int(lock) + 2,
+            "bmp_writes": previews,
             "xyz_writes": n_frames if xyz else 0}
 
 
@@ -830,17 +852,24 @@ def gray_runs(launches):
     errs = {}
     planes = 2 * cfg.gray_bits + cfg.phase_steps
     calib_path = os.path.join(ds, "parameters.yml")
+    # The locked run also writes frame 0's depth for ``fuse`` and the two
+    # previews, each rendered through the bilateral kernel.
     for name, extra, step in (
-            ("locked", [], "dynamic_step_lock"),
+            ("locked", ["--save-depth", "--preview"], "dynamic_step_lock"),
             ("free", ["--phase-lock", "off"], "dynamic_step"),
             ("fast", ["--fast-subpixel"], "dynamic_step_lock")):
         out = os.path.join(WORK, name)
+        previews = 2 if name == "locked" else 0
         got = counted_run(
             [ds, "--calib", calib_path, "--out", out, *extra],
-            lambda: {"grayphase": 2, "stripe": 1, step: N_FRAMES},
-            native_expected(planes, N_FRAMES, lock=name != "free"))
+            lambda: {"grayphase": 2, "stripe": 1, step: N_FRAMES,
+                     "bilateral": previews},
+            native_expected(planes, N_FRAMES, lock=name != "free",
+                            previews=previews))
         for k, v in got.items():
             launches[k] += v
+        if previews:
+            check_depth_and_previews(out, calib)
         z = np.load(os.path.join(out, f"cFrame{N_FRAMES - 1}.npz"))["z"]
         errs[name] = median_err(z, zs[N_FRAMES - 1], cfg.reco_window // 2 + 2)
         recs = frame_records(out)
@@ -900,6 +929,191 @@ def gray_runs(launches):
         f"{(summary['writer_total_ms'] - summary['writer_copy_ms']) / n:.3f}"
         f"); cFrame{N_FRAMES - 1}.txt {pts.shape[0]} lines, one per pixel "
         f"with z > 0, values within {err:.3e} of the maps (bar 5e-8)")
+
+
+def plain_render(z, fx, fy, cx, cy):
+    """cloud.render_depth_map with the plain bilateral filter."""
+    filtered = kbil.bilateral_filter_ref(z)
+    normals, ok = cloud.cloud_normals(
+        cloud.depth_to_cloud(filtered, fx, fy, cx, cy), filtered > 0)
+    return cloud.luminance_map(cloud.depth_to_cloud(z, fx, fy, cx, cy),
+                               normals, ok)
+
+
+def check_depth_and_previews(out, calib):
+    """The locked run's ``--save-depth`` and ``--preview`` outputs:
+    depth_iFrame.npz holds frame 0's z bit for bit and the calibration's
+    cam_k; each preview BMP is the display of the kernel path's render of
+    its frame's depth, and that render is within 1 of the plain chain's
+    (the plain bilateral filter) on at most 0.1% of the pixels. Then the
+    render's device time per call, kernel and plain, and the host wall of
+    one preview written as the runner writes it."""
+    cfg = REFERENCE_CONFIG
+    d = np.load(os.path.join(out, "depth_iFrame.npz"))
+    z0 = np.load(os.path.join(out, "iFrame.npz"))["z"]
+    require(d["z"].dtype == np.float32 and d["z"].shape == z0.shape
+            and np.array_equal(d["z"].view(np.uint32), z0.view(np.uint32)),
+            "depth_iFrame.npz z is not frame 0's bit for bit")
+    require(np.array_equal(d["cam_k"], calib.cam_k.numpy()),
+            "depth_iFrame.npz cam_k is not the calibration's")
+    k = calib.cam_k.numpy()
+    kk = (float(k[0, 0]), float(k[1, 1]), float(k[0, 2]), float(k[1, 2]))
+    last = N_FRAMES - 1
+    for bmp, npz in (("preview_iFrame.bmp", "iFrame.npz"),
+                     (f"preview_cFrame{last}.bmp", f"cFrame{last}.npz")):
+        img = read_bmp(os.path.join(out, bmp))
+        require(img.shape == (cfg.cam_h, cfg.cam_w)
+                and img.dtype == np.uint8, f"{bmp}: {img.shape} {img.dtype}")
+        z = torch.from_numpy(np.load(os.path.join(out, npz))["z"]).cuda()
+        lum = cloud.render_depth_map(z, *kk)
+        plain = plain_render(z, *kk)
+        diff = (lum.int() - plain.int()).abs()
+        n_diff = int((diff > 0).sum())
+        log(f"  preview {bmp}: kernel vs plain render max|diff| "
+            f"{int(diff.max())}, {n_diff} px differ ({n_diff / z.numel():.5%}"
+            f"; bar 1 on 0.1%)")
+        require(int(diff.max()) <= 1 and n_diff <= 1e-3 * z.numel(),
+                f"{bmp}: the kernel path's render is off the plain chain")
+        require(np.array_equal(img, visualization.to_display(
+            lum.cpu().numpy())), f"{bmp} is not the kernel path's render")
+    ms = 1e3 * devtime.device_time_s(lambda: cloud.render_depth_map(z, *kk),
+                                     TIME_N, warmup=TIME_WARMUP)
+    plain_ms = 1e3 * devtime.device_time_s(lambda: plain_render(z, *kk),
+                                           TIME_N, warmup=TIME_WARMUP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(5):
+        runner._write_preview(WORK, f"preview_timed{i}", z, calib)
+    wall = 1e3 * (time.perf_counter() - t0) / 5
+    log(f"e2e preview at {cfg.cam_h}x{cfg.cam_w} on {card_line()}: render "
+        f"{ms:.4f} ms a call (CUDA events; plain chain {plain_ms:.4f} ms); "
+        f"one preview written as the runner writes it (render, copy to "
+        f"the host, display scaling, BMP) {wall:.3f} ms host wall")
+
+
+def fusion_problem():
+    """bench.py:453-521's config-5 frontend: 16 depth maps at 1216x1632
+    ray-cast from an orbit about the scene centre (0.006 / 0.025 rad a
+    step), initial poses perturbed from seed 7. Returns (args, kw,
+    (rot0, trans0, rot_gt, trans_gt)) for ``register_scans(*args,
+    **kw)``."""
+    h, w, s = FUSE_SHAPE + (FUSE_SCANS,)
+    calib = synthetic_calibration(cam_h=h, cam_w=w, cam_f=130.0 * w / 160.0)
+    center = np.array([0.0, 0.0, 62.0])
+
+    def rot_of(v):
+        return se3.exp_so3(torch.tensor(v, dtype=torch.float32)).numpy() \
+            .astype(np.float64)
+    rot_gt = np.stack([rot_of([0.006 * (i - 8), 0.025 * (i - 8), 0.0])
+                       for i in range(s)])
+    trans_gt = np.stack([(np.eye(3) - r) @ center for r in rot_gt])
+    depths = np.stack([synth.render_depth_from_pose(calib, h, w, rot_gt[i],
+                                                    trans_gt[i])
+                       for i in range(s)]).astype(np.float32)
+    rng = np.random.default_rng(7)
+    rot0, trans0 = rot_gt.copy(), trans_gt.copy()
+    for i in range(1, s):
+        rot0[i] = rot_of(rng.normal(0, 0.01, 3)) @ rot0[i]
+        trans0[i] = trans0[i] + rng.normal(0, 0.15, 3)
+    args = (depths, calib.cam_k.numpy(), rot0.astype(np.float32),
+            trans0.astype(np.float32))
+    kw = dict(rounds=8, gn_iters=5, grid_step=16, max_depth_err=2.0)
+    return args, kw, (rot0, trans0, rot_gt, trans_gt)
+
+
+def fusion_phase():
+    """Phase 6a: 16-scan registration at 2 MP on the card
+    (:func:`fusion_problem`). It must reach ATE < 0.05 and < 0.25 x the
+    initial ATE, lie within 2e-3 of the same call on the CPU, and return
+    the same poses bit for bit when the caller has set
+    ``torch.set_float32_matmul_precision("high")``."""
+    h, w = FUSE_SHAPE
+    t0 = time.perf_counter()
+    args, kw, (rot0, trans0, rot_gt, trans_gt) = fusion_problem()
+    log(f"fusion: ray-cast {FUSE_SCANS} scans at {h}x{w} in "
+        f"{time.perf_counter() - t0:.1f} s; {(h // 16) * (w // 16)} "
+        f"landmarks a scan")
+
+    register_scans(*args, device="cuda", **kw)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rot, trans = register_scans(*args, device="cuda", **kw)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    stages = {}
+    register_scans(*args, device="cuda", timings=stages, **kw)
+    f32 = (lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda())
+    ate0 = float(fusion.ate_rmse(*map(f32, (rot0, trans0, rot_gt,
+                                            trans_gt))))
+    ate = float(fusion.ate_rmse(rot, trans, f32(rot_gt), f32(trans_gt)))
+    log(f"fusion on {card_line()}: register_scans {wall:.1f} ms wall "
+        f"(synchronised, after one warm-up); by stage, each synchronised: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in stages.items())
+        + f" (sum {sum(stages.values()):.1f}); ATE {ate:.5f} from "
+        f"{ate0:.5f}")
+    require(ate < 0.05 and ate < 0.25 * ate0,
+            f"fusion ATE {ate} (initial {ate0}) misses < 0.05 and < 0.25x")
+
+    t0 = time.perf_counter()
+    rot_c, trans_c = register_scans(*args, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    err = max(float((rot.cpu() - rot_c).abs().max()),
+              float((trans.cpu() - trans_c).abs().max()))
+    log(f"fusion: card vs CPU poses max|diff| {err:.3e} (bar 2e-3); the CPU "
+        f"call took {cpu_s:.1f} s on {host_cpu()}")
+    require(err <= 2e-3, f"card poses {err} from the CPU's")
+
+    prec = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        rot_h, trans_h = register_scans(*args, device="cuda", **kw)
+    finally:
+        torch.set_float32_matmul_precision(prec)
+    same = torch.equal(rot_h, rot) and torch.equal(trans_h, trans)
+    log(f"fusion: with float32 matmul precision 'high' set by the caller "
+        f"the poses are {'bit-identical' if same else 'DIFFERENT'}")
+    require(same, "register_scans depends on the caller's TF32 setting")
+
+
+def fuse_cli_run():
+    """Phase 6b: ``python -m slc_tpu_torch fuse`` through ``main()`` on 3
+    depth files at 1024x1280 (tests/test_fuse_cli.py:17-36's motions):
+    poses.json must meet that test's bar and fused.txt hold more than two
+    scans' pixels."""
+    h, w = REFERENCE_CONFIG.cam_h, REFERENCE_CONFIG.cam_w
+    calib = synthetic_calibration(cam_h=h, cam_w=w, cam_f=110.0 * w / 128.0)
+    cam_k = calib.cam_k.numpy()
+    paths, trans_gt = [], []
+    for i in range(3):
+        r = se3.exp_so3(torch.tensor([0.0, 0.02 * i, 0.0])).numpy() \
+            .astype(np.float64)
+        t = np.array([0.5 * i, 0.05 * i, -0.1 * i])
+        trans_gt.append(t)
+        p = os.path.join(WORK, f"scan{i}", "depth_iFrame.npz")
+        os.makedirs(os.path.dirname(p))
+        np.savez(p, z=synth.render_depth_from_pose(calib, h, w, r, t)
+                 .astype(np.float32), cam_k=cam_k)
+        paths.append(p)
+    out = os.path.join(WORK, "fused")
+    t0 = time.perf_counter()
+    rc = slc_main(["fuse", *paths, "--out", out, "--device", "cuda",
+                   "--rounds", "6", "--grid-step", "6", "--max-depth-err",
+                   "2.0"])
+    wall = time.perf_counter() - t0
+    require(rc == 0, f"fuse exited {rc}")
+    with open(os.path.join(out, "poses.json")) as f:
+        poses = json.load(f)["world_from_scan"]
+    errs = [float(np.linalg.norm(np.asarray(poses[i]["trans"]) - trans_gt[i]))
+            for i in (1, 2)]
+    with open(os.path.join(out, "fused.txt")) as f:
+        lines = sum(1 for _ in f)
+    log(f"e2e fuse CLI: 3 scans at {h}x{w}, {wall:.1f} s wall (register, "
+        f"poses.json, fused.txt by np.savetxt); translation errors "
+        f"{errs[0]:.4f}, {errs[1]:.4f}; fused.txt {lines} lines")
+    for i, e in zip((1, 2), errs):
+        require(e < 0.25 * np.linalg.norm(trans_gt[i]) + 0.05,
+                f"fuse scan {i}: translation error {e}")
+    require(lines > 2 * h * w, f"fused.txt has {lines} lines")
 
 
 def mg_kernel_visits(h, w):
@@ -1078,6 +1292,8 @@ def main(argv=None) -> int:
         del inputs
         gray_runs(launches)
         fringe_runs(dev, launches, level_ms)
+        fusion_phase()
+        fuse_cli_run()
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

@@ -1,7 +1,9 @@
-"""Command-line interface (PyTorch port of slc_tpu/__main__.py:201-413).
+"""Command-line interface (PyTorch port of slc_tpu/__main__.py:129-413).
 
 ``python -m slc_tpu_torch run``   — replay reconstruction (main.cpp:42-45)
 ``python -m slc_tpu_torch synth`` — render a synthetic replay dataset
+``python -m slc_tpu_torch fuse``  — register several scans' depth maps
+                                    into one fused cloud
 
 The flags are slc_tpu's, plus ``--device`` (default ``cuda``). Flags for
 what is not ported yet are rejected with an error, never ignored.
@@ -62,15 +64,8 @@ def _build_cfg(args, manifest=None):
 
 def _not_ported(ap: argparse.ArgumentParser, args) -> None:
     """Reject the flags of features slc_tpu has and this port has not."""
-    bad = []
-    if args.cmd == "run":
-        if args.chunk != 1:
-            bad.append(f"--chunk {args.chunk}")
-        for flag in ("preview", "save_depth"):
-            if getattr(args, flag):
-                bad.append("--" + flag.replace("_", "-"))
-    if bad:
-        ap.error(f"{', '.join(bad)}: not ported to slc_tpu_torch yet "
+    if args.cmd == "run" and args.chunk != 1:
+        ap.error(f"--chunk {args.chunk}: not ported to slc_tpu_torch yet "
                  f"(use python -m slc_tpu)")
 
 
@@ -145,13 +140,79 @@ def _cmd_run(args, cfg) -> int:
         checkpoint_every=args.checkpoint_every, resume=args.resume,
         scale_gradient=not ref, subpixel=not ref, robust=not ref,
         mode=args.mode, phase_lock=None if ref else lock,
-        refine_period=args.refine_period,
-        out_format=args.out_format, stream=not args.strict_loop,
+        refine_period=args.refine_period, save_depth=args.save_depth,
+        preview=args.preview, out_format=args.out_format,
+        stream=not args.strict_loop,
         frac_bits=7 if args.fast_subpixel and not ref else 0)
     last = report.metrics.records[-1] if report.metrics.records else {}
     print(f"done: frames={report.frames_done} "
           f"first_frame_points={report.first_frame_points} "
           f"last_valid_frac={last.get('valid_frac', 0):.3f}")
+    return 0
+
+
+def _cmd_fuse(args) -> int:
+    """Multi-scan registration (BASELINE config 5 as a user flow,
+    slc_tpu/__main__.py:129-198): load per-scan depth maps, jointly
+    register them with alternating projective association and
+    point-to-plane bundle adjustment (fusion_frontend.register_scans) on
+    ``--device``, and write the poses plus one fused world-frame cloud."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from slc_tpu_torch import cloud, se3
+    from slc_tpu_torch.fusion import full_f32
+    from slc_tpu_torch.fusion_frontend import register_scans
+
+    if len(args.depths) < 2:
+        raise SystemExit("fuse needs at least 2 depth_iFrame.npz files")
+    zs, cam_k = [], None
+    for p in args.depths:
+        d = np.load(p)
+        if "z" not in d or "cam_k" not in d:
+            raise SystemExit(f"{p} is not a depth_iFrame.npz "
+                             "(expected arrays 'z' and 'cam_k')")
+        if cam_k is None:
+            cam_k = d["cam_k"]
+        elif not np.allclose(cam_k, d["cam_k"]):
+            raise SystemExit(f"{p} has a different cam_k: scans must "
+                             "come from the same rig")
+        if zs and d["z"].shape != zs[0].shape:
+            raise SystemExit(f"{p} depth shape {d['z'].shape} != "
+                             f"{zs[0].shape}")
+        zs.append(d["z"].astype(np.float32))
+    depths = np.stack(zs)
+    s = len(zs)
+    init_rot = np.tile(np.eye(3, dtype=np.float32), (s, 1, 1))
+    init_trans = np.zeros((s, 3), np.float32)
+    rot, trans = register_scans(
+        depths, cam_k, init_rot, init_trans, rounds=args.rounds,
+        gn_iters=args.gn_iters, grid_step=args.grid_step,
+        max_depth_err=args.max_depth_err, device=args.device)
+
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "poses.json"), "w") as f:
+        json.dump({"scans": args.depths,
+                   "world_from_scan": [
+                       {"rot": r.tolist(), "trans": t.tolist()}
+                       for r, t in zip(rot.cpu().numpy(),
+                                       trans.cpu().numpy())]},
+                  f, indent=1)
+
+    fx, fy = float(cam_k[0, 0]), float(cam_k[1, 1])
+    cx, cy = float(cam_k[0, 2]), float(cam_k[1, 2])
+    pts = cloud.depth_to_cloud(torch.from_numpy(depths).to(rot.device), fx,
+                               fy, cx, cy).reshape(s, -1, 3)
+    with full_f32():
+        world = se3.apply(rot, trans[:, None, :], pts).reshape(-1, 3)
+    world = world.cpu().numpy()
+    n = cloud.write_xyz(os.path.join(args.out, "fused.txt"), world[:, 0],
+                        world[:, 1], world[:, 2],
+                        mask=depths.reshape(-1) > 0)
+    print(f"fused {s} scans -> {args.out}/fused.txt ({n} points), "
+          f"poses.json")
     return 0
 
 
@@ -179,9 +240,11 @@ def main(argv=None) -> int:
                       default="gray",
                       help="frame-0 absolute decode method")
     runp.add_argument("--save-depth", action="store_true",
-                      help="not ported yet")
+                      help="also write depth_iFrame.npz (frame-0 depth "
+                           "+ cam_k) for `fuse`")
     runp.add_argument("--preview", action="store_true",
-                      help="not ported yet")
+                      help="write shaded depth preview BMPs (frame 0 "
+                           "and the last tracked frame)")
     runp.add_argument("--phase-lock", default="auto",
                       help="'auto' (default: lock to the manifest's "
                            "stripe_period), 'off', or an explicit "
@@ -217,8 +280,29 @@ def main(argv=None) -> int:
                          "(aFrame{f}/) every K dynamic frames")
     _add_cfg_args(sy)
 
+    fu = sub.add_parser(
+        "fuse", help="register multiple scans into one fused cloud "
+                     "(multi-scan Schur-complement bundle adjustment)")
+    fu.add_argument("depths", nargs="+",
+                    help="depth_iFrame.npz files from `run --save-depth`"
+                         " (>=2, same rig)")
+    fu.add_argument("--out", default="fused",
+                    help="output dir: poses.json + fused.txt")
+    fu.add_argument("--device", default="cuda",
+                    help="torch device: 'cuda' (default; raises "
+                         "without CUDA) or 'cpu'")
+    fu.add_argument("--rounds", type=int, default=4,
+                    help="association<->BA alternations")
+    fu.add_argument("--gn-iters", type=int, default=5)
+    fu.add_argument("--grid-step", type=int, default=8,
+                    help="landmark sampling stride (px)")
+    fu.add_argument("--max-depth-err", type=float, default=1.0,
+                    help="projective-association gate (scene units)")
+
     args = ap.parse_args(argv)
     _not_ported(ap, args)
+    if args.cmd == "fuse":
+        return _cmd_fuse(args)
 
     manifest = None
     if args.cmd == "run":

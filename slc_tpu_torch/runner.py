@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from slc_tpu_torch import cloud
+from slc_tpu_torch import cloud, visualization
 from slc_tpu_torch.calib import Calibration, build_tables, resolve_device
 from slc_tpu_torch.checkpoint import latest_checkpoint, load_state, save_state
 from slc_tpu_torch.config import HeterodyneConfig, SystemConfig
@@ -61,6 +61,8 @@ def run_replay(dataset_root: str, calib: "Calibration | str",
                fault_seed: int = 0,
                mode: str = "gray",
                use_anchors: bool = True,
+               save_depth: bool = False,
+               preview: bool = False,
                phase_lock: "str | float | None" = "auto",
                lock_window: Optional[int] = None,
                refine_period: bool = False,
@@ -86,11 +88,15 @@ def run_replay(dataset_root: str, calib: "Calibration | str",
     re-anchor the tracker when ``use_anchors`` is set. ``frac_bits`` > 0
     is the fast sub-pixel mode of every tracker step (the stripe
     fraction quantized to that many bits; tracker init and re-anchor
-    stay exact, as in slc_tpu). See
+    stay exact, as in slc_tpu). ``save_depth`` writes frame 0's depth
+    and the camera intrinsics for ``fuse``; ``preview`` writes shaded
+    depth renders of frame 0 and of the last tracked frame. See
     slc_tpu/runner.py:64-118 for the rationale of each.
 
     Outputs: <out_dir>/iFrame.<ext>, <out_dir>/cFrame{N}.<ext> ("txt"
-    for ``out_format`` "xyz", "npz" for "npz") and metrics.jsonl.
+    for ``out_format`` "xyz", "npz" for "npz") and metrics.jsonl; with
+    ``save_depth`` depth_iFrame.npz (``z`` and ``cam_k``, float32), with
+    ``preview`` preview_iFrame.bmp and preview_cFrame{N}.bmp.
     """
     if mode not in ("gray", "heterodyne", "spatial"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -148,6 +154,15 @@ def run_replay(dataset_root: str, calib: "Calibration | str",
         with stage("slc/write", log):
             n_pts = write_frame(os.path.join(out_dir, f"iFrame.{ext}"),
                                 first.x, first.y, first.z)
+    if save_depth:
+        # Machine-readable depth for multi-scan fusion (``python -m
+        # slc_tpu_torch fuse``): the ASCII clouds drop pixel indexing,
+        # which projective association needs.
+        np.savez(os.path.join(out_dir, "depth_iFrame.npz"),
+                 z=first.z.cpu().numpy().astype(np.float32),
+                 cam_k=calib.cam_k.numpy().astype(np.float32))
+    if preview:
+        _write_preview(out_dir, "preview_iFrame", first.z, calib)
     log.log_frame(0, frame_stats(first.z))
 
     # Phase-locked tracking: the stripe period from the manifest, the
@@ -313,8 +328,22 @@ def run_replay(dataset_root: str, calib: "Calibration | str",
                 if loop_exc is None:
                     raise
 
+    if preview and done >= start_frame:
+        _write_preview(out_dir, f"preview_cFrame{done}", state.z, calib)
     log.save(os.path.join(out_dir, "metrics.jsonl"))
     return RunReport(done, n_pts, log)
+
+
+def _write_preview(out_dir: str, name: str, z: torch.Tensor,
+                   calib: Calibration) -> str:
+    """Shaded depth preview BMP (the depthMapUtils.cpp:167-187 render
+    chain: bilateral -> normals -> Phong-style luminance), rendered on
+    the device of ``z``."""
+    k = calib.cam_k.numpy()
+    lum = cloud.render_depth_map(z, float(k[0, 0]), float(k[1, 1]),
+                                 float(k[0, 2]), float(k[1, 2]))
+    return visualization.show(name, lum.cpu().numpy(), out_dir=out_dir,
+                              force=True)
 
 
 def _decode_anchor(ds, f: int, tables, cfg: SystemConfig, mode: str,

@@ -3,7 +3,9 @@ the CPU tests' small shapes (96x160 and a ragged 90x150; the track
 launch also at 1000x1270, the heterodyne decode at 97x157 and at 3 x 5
 steps, the bilateral filter at 97x157, 1x1280 and 1024x1 and with 50%
 holes, the multigrid kernels at 97x201 and at the level shapes of both
-of chip_smoke.py's chains, the floors at widths 1270-1280). Marked
+of chip_smoke.py's chains, the floors at widths 1270-1280; the preview
+render through the bilateral kernel and multi-scan registration on the
+card against the CPU, which has no kernel of its own). Marked
 ``cuda``: each test skips where there is no card. On the card:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -410,3 +412,57 @@ def test_graph_time(dev):
     assert 0 < alone < call
     for a, b in zip(args[:4], keep):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(1024, 1280)])
+def test_preview_render_through_the_kernel(dev, shape):
+    """cloud.render_depth_map on the card launches the bilateral kernel
+    once, and its u8 is within 1 of the plain chain's on at most 0.1% of
+    the pixels."""
+    from slc_tpu_torch import cloud
+    rng = np.random.default_rng(2)
+    yy, xx = np.mgrid[0:shape[0], 0:shape[1]]
+    z = (40.0 + 0.05 * xx - 0.03 * yy + rng.normal(0, 0.01, shape))
+    z[rng.uniform(size=shape) < 0.05] = 0.0
+    z = torch.from_numpy(z.astype(np.float32)).to(dev)
+    k = (200.0, 190.0, shape[1] / 2, shape[0] / 2)
+    kbil.bilateral_filter_cuda.launches = 0
+    got = cloud.render_depth_map(z, *k)
+    assert kbil.bilateral_filter_cuda.launches == 1
+    f = kbil.bilateral_filter_ref(z)
+    n, ok = cloud.cloud_normals(cloud.depth_to_cloud(f, *k), f > 0)
+    want = cloud.luminance_map(cloud.depth_to_cloud(z, *k), n, ok)
+    d = (got.int() - want.int()).abs()
+    assert got.dtype == torch.uint8 and got.device == z.device
+    assert int(d.max()) <= 1 and int((d > 0).sum()) <= 1e-3 * z.numel()
+
+
+def test_register_scans_on_the_card(dev):
+    """Registration on the card: within 2e-3 of the same call on the CPU,
+    and bit-identical whatever float32 matmul precision the caller set."""
+    from slc_tpu_torch import se3
+    from slc_tpu_torch.fusion_frontend import register_scans
+    h, w, s = 120, 160, 4
+    calib = synthetic_calibration(cam_h=h, cam_w=w, cam_f=130.0)
+    rot, trans = [], []
+    for i in range(s):
+        rot.append(se3.exp_so3(torch.tensor([0.0, 0.06 * i, 0.0])).numpy())
+        trans.append(np.array([2.0 * i, 0.1 * i, -0.5 * i], np.float32))
+    depths = np.stack([synth.render_depth_from_pose(calib, h, w, r, t)
+                       for r, t in zip(rot, trans)]).astype(np.float32)
+    rot0 = np.stack(rot)
+    trans0 = np.stack(trans) + np.float32(0.1)
+    trans0[0] = trans[0]
+    args = (depths, calib.cam_k.numpy(), rot0, trans0)
+    kw = dict(rounds=4, gn_iters=5, grid_step=6, max_depth_err=2.0)
+    got = register_scans(*args, device=dev, **kw)
+    want = register_scans(*args, device="cpu", **kw)
+    for g, e in zip(got, want):
+        torch.testing.assert_close(g.cpu(), e, atol=2e-3, rtol=0)
+    prec = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        again = register_scans(*args, device=dev, **kw)
+    finally:
+        torch.set_float32_matmul_precision(prec)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))

@@ -241,8 +241,7 @@ def test_cli_runs_modes_on_cpu(tmp_path, fringe_dataset, mode, capsys):
     assert os.path.exists(os.path.join(out, f"cFrame{N_FRAMES - 1}.npz"))
 
 
-@pytest.mark.parametrize("flags", [["--chunk", "4"], ["--preview"],
-                                   ["--save-depth"]])
+@pytest.mark.parametrize("flags", [["--chunk", "4"]])
 def test_cli_rejects_flags_not_ported(tmp_path, dataset, flags, capsys):
     with pytest.raises(SystemExit) as e:
         main(["run", dataset, "--calib",
@@ -305,8 +304,9 @@ def test_npz_checkpoint_resumes_across_packages(tmp_path, dataset,
 
 
 def test_port_never_imports_jax(tmp_path):
-    """With jax and slc_tpu made unimportable, synth --fringes -> run in
-    every mode still works end to end on the CPU."""
+    """With jax and slc_tpu made unimportable, synth --fringes -> run
+    --save-depth --preview in every mode -> fuse still works end to end
+    on the CPU."""
     script = textwrap.dedent(f"""
         import sys
         sys.modules["jax"] = None
@@ -325,7 +325,10 @@ def test_port_never_imports_jax(tmp_path):
             assert main(["run", ds, "--calib", ds + "/parameters.yml",
                          "--out", out + "/" + mode, "--out-format", "npz",
                          "--device", "cpu", "--mode", mode,
-                         "--fast-subpixel"]) == 0
+                         "--fast-subpixel", "--save-depth", "--preview"]) == 0
+        assert main(["fuse", out + "/gray/depth_iFrame.npz",
+                     out + "/spatial/depth_iFrame.npz", "--out",
+                     out + "/fused", "--device", "cpu", "--rounds", "1"]) == 0
         loaded = [m for m, mod in sys.modules.items() if mod is not None
                   and m.split(".")[0] in ("jax", "jaxlib", "slc_tpu")]
         assert not loaded, loaded
