@@ -86,6 +86,24 @@ Run from the root of a checkout. In order it:
      The multigrid kernels must launch 7 times per preconditioner call,
      ``cg_iters + 1`` calls per decode, ``cg_iters`` taken from a direct
      ``unwrap_spatial(..., return_info=True)`` on the same input.
+   - the streaming loop (between the gray and the fringe runs):
+     ``--chunk 8`` (K steps as one CUDA graph replay) locked and with
+     ``--phase-lock off`` on the gray dataset, every cloud bit-identical
+     to the ``--chunk 1`` run's, the launch counts those of the per-frame
+     run (a replay counts K) and the locked error bars held; the loop's
+     fps with ``--no-clouds`` at ``--chunk`` 1, 8 and 16 on a 65-frame
+     dataset, with the host wall per frame of ``slc/dynamic_step`` and of
+     ``slc/dynamic_chunk`` / K and the device's busy share (phase 4's
+     kernels-alone time x frames over the loop's wall); the writer's
+     device-to-host copy per frame, beside a pageable and a pinned copy
+     of the same maps timed here; ``streaming.measure_overlap`` at
+     1024x1280 (open-loop step, ``compute_repeats="auto"``), printed;
+   - ``python -m slc_tpu_torch capture --scene plane --frames 4`` at the
+     reference config, then ``run`` on it: frame 0 within 1.0 of z = 50
+     on more than 99% of the points; and the golden oracle
+     (``slc_tpu_torch.golden``) at 48x64: the open-loop kernel with the
+     reference's semantics (P 1e-3, strips exact), ``decode_gray``
+     (exact) and ``gray_assisted_merge`` (1e-3) on the card.
 
 6. multi-scan fusion, which has no kernel (plain PyTorch on the card):
    ``register_scans`` on 16 scans at 1216x1632 (bench.py's config-5
@@ -118,11 +136,12 @@ import time
 import numpy as np
 import torch
 
-from slc_tpu_torch import (cloud, devtime, fusion, runner, se3, synth,
-                           visualization)
+from slc_tpu_torch import (cloud, devtime, fusion, golden, runner, se3,
+                           streaming, synth, visualization)
 from slc_tpu_torch.__main__ import main as slc_main
 from slc_tpu_torch.calib import build_tables, synthetic_calibration
 from slc_tpu_torch.config import REFERENCE_CONFIG, HeterodyneConfig
+from slc_tpu_torch.dynamic import init_tracker
 from slc_tpu_torch.fusion_frontend import register_scans
 from slc_tpu_torch.io import native as native_io
 from slc_tpu_torch.io.bmp import _read_bmp_numpy, read_bmp
@@ -139,13 +158,18 @@ from slc_tpu_torch.kernels import phaselock as kpl
 from slc_tpu_torch.kernels import stripe as kstripe
 from slc_tpu_torch.ops import unwrap_spatial as U
 from slc_tpu_torch.ops.demod import suggest_lock_window
+from slc_tpu_torch.ops.gray import decode_gray
 from slc_tpu_torch.ops.phase import decode_phase, modulation
+from slc_tpu_torch.ops.unwrap import gray_assisted_merge
 from slc_tpu_torch.pipeline import decode_spatial_frame
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, ".chip_smoke_work")
 SHAPES = ((1024, 1280), (1000, 1270))
 N_FRAMES = 30
+#: The loop-rate runs: 64 dynamic frames, four chunks of 16.
+N_LOOP_FRAMES = 65
+N_CAPTURE_FRAMES = 4
 N_FRINGE_FRAMES = 10
 LOCK_T = 12.0
 HET = HeterodyneConfig()
@@ -929,6 +953,240 @@ def gray_runs(launches):
         f"{(summary['writer_total_ms'] - summary['writer_copy_ms']) / n:.3f}"
         f"); cFrame{N_FRAMES - 1}.txt {pts.shape[0]} lines, one per pixel "
         f"with z > 0, values within {err:.3e} of the maps (bar 5e-8)")
+    return errs
+
+
+def same_clouds(out_a, out_b, n_frames):
+    """The npz clouds of two runs bit for bit (NaN bits too); returns the
+    number of files compared."""
+    names = sorted(f for f in os.listdir(out_a) if f.endswith(".npz")
+                   and f != "depth_iFrame.npz")
+    require(names == sorted(f for f in os.listdir(out_b)
+                            if f.endswith(".npz")
+                            and f != "depth_iFrame.npz")
+            and len(names) == n_frames, f"cloud files differ: {names}")
+    for name in names:
+        a, b = (np.load(os.path.join(o, name)) for o in (out_a, out_b))
+        for k in ("x", "y", "z"):
+            require(np.array_equal(a[k].view(np.uint32),
+                                   b[k].view(np.uint32)),
+                    f"{name}.{k}: {out_b} differs from {out_a}")
+    return len(names)
+
+
+def loop_wall_s(recs, first):
+    """Host wall of the loop from the record of frame ``first`` to the
+    last record (the sum of the records' 1/fps), and its frame count."""
+    idx = next(i for i, r in enumerate(recs) if r["frame"] == first)
+    return sum(1.0 / r["fps"] for r in recs[idx + 1:]), len(recs) - idx - 1
+
+
+def stream_runs(launches, errs, times):
+    """Phase 5c: the streaming loop. ``run --chunk 8`` (K steps as one CUDA
+    graph replay) on phase 5a's dataset, locked and free, against the
+    ``--chunk 1`` runs bit for bit, with exact launch counts; the loop's
+    fps with ``--no-clouds`` at ``--chunk`` 1, 8 and 16 on a 65-frame
+    dataset, the host wall per frame of a step and of a chunk, and the
+    device's busy share; the writer's device-to-host copy per frame beside
+    a pageable copy of the same maps; and ``measure_overlap`` at
+    1024x1280 (open-loop step, ``compute_repeats="auto"``)."""
+    cfg = REFERENCE_CONFIG
+    ds = os.path.join(WORK, "ds")
+    calib_path = os.path.join(ds, "parameters.yml")
+    planes = 2 * cfg.gray_bits + cfg.phase_steps
+    for name, extra, step, ref in (
+            ("chunk_locked", [], "dynamic_step_lock", "locked"),
+            ("chunk_free", ["--phase-lock", "off"], "dynamic_step", "free")):
+        out = os.path.join(WORK, name)
+        # A warm-up step, 3 replays of 8 steps and a tail of 5 single
+        # steps: N_FRAMES launches, as the per-frame run.
+        got = counted_run(
+            [ds, "--calib", calib_path, "--out", out, "--chunk", "8",
+             *extra],
+            lambda: {"grayphase": 2, "stripe": 1, step: N_FRAMES},
+            native_expected(planes, N_FRAMES, lock=name != "chunk_free"))
+        for k, v in got.items():
+            launches[k] += v
+        n = same_clouds(os.path.join(WORK, ref), out, N_FRAMES)
+        recs = frame_records(out)
+        chunks = [r["t_dynamic_chunk_ms"] for r in recs
+                  if "t_dynamic_chunk_ms" in r]
+        require(len(chunks) == 3, f"{name}: {len(chunks)} chunks, not 3")
+        log(f"e2e gray {name} (--chunk 8): {n} clouds bit-identical to the "
+            f"--chunk 1 run's; chunk host wall {chunks} ms (3 replays of 8 "
+            f"steps, then 5 single steps)")
+    z = np.load(os.path.join(WORK, "chunk_locked",
+                             f"cFrame{N_FRAMES - 1}.npz"))["z"]
+    calib = synthetic_calibration(cam_h=cfg.cam_h, cam_w=cfg.cam_w,
+                                  pro_h=cfg.pro_h, pro_w=cfg.pro_w)
+    t0 = time.perf_counter()
+    frames, zs, pus = synth.render_dynamic_sequence(
+        calib, cfg, N_LOOP_FRAMES, z0=50.0, dz_per_frame=0.3,
+        stripe_period=int(LOCK_T), noise_sigma=1.0)
+    err = median_err(z, zs[N_FRAMES - 1], cfg.reco_window // 2 + 2)
+    require(err == errs["locked"] and err < 0.05
+            and err < 0.5 * errs["free"], f"chunked locked error {err}")
+    scene = synth.render_static_scene(calib, cfg, synth.plane_surface(50.0),
+                                      noise_sigma=1.0)
+    loop_ds = os.path.join(WORK, "loop_ds")
+    write_replay_dataset(loop_ds, scene.gray_images, scene.phase_images,
+                         frames, config_fields={
+                             "pro_h": cfg.pro_h, "pro_w": cfg.pro_w,
+                             "gray_bits": cfg.gray_bits,
+                             "phase_steps": cfg.phase_steps,
+                             "stripe_period": int(LOCK_T)})
+    save_calibration(os.path.join(loop_ds, "parameters.yml"), calib)
+    log(f"e2e loop: rendered and wrote {N_LOOP_FRAMES} frames in "
+        f"{time.perf_counter() - t0:.1f} s")
+    kernel_ms = times["dynamic_step_lock"][2]
+    card = card_line()
+    for k in (1, 8, 16):
+        out = os.path.join(WORK, f"loop{k}")
+        got = counted_run(
+            [loop_ds, "--calib", os.path.join(loop_ds, "parameters.yml"),
+             "--out", out, "--chunk", str(k), "--no-clouds"],
+            lambda: {"grayphase": 2, "stripe": 1,
+                     "dynamic_step_lock": N_LOOP_FRAMES},
+            native_expected(planes, N_LOOP_FRAMES))
+        for name, v in got.items():
+            launches[name] += v
+        recs = frame_records(out)
+        # From the end of the first chunk of 16 to the last frame: 48
+        # frames, whole chunks at K = 8 and 16.
+        wall, n = loop_wall_s(recs, 16)
+        per = [r["t_dynamic_step_ms"] for r in recs
+               if "t_dynamic_step_ms" in r]
+        per += [r["t_dynamic_chunk_ms"] / k for r in recs
+                if "t_dynamic_chunk_ms" in r]
+        log(f"e2e loop --chunk {k} --no-clouds on {card}: fps "
+            f"{n / wall:.2f} over frames 17-{N_LOOP_FRAMES - 1} ({n} "
+            f"frames, {1e3 * wall / n:.4f} ms a frame); host wall of "
+            f"{'slc/dynamic_step' if k == 1 else 'slc/dynamic_chunk / K'} "
+            f"per frame, median {statistics.median(per):.4f} ms; kernels "
+            f"alone {kernel_ms:.4f} ms a frame (phase 4), so the device is "
+            f"busy {kernel_ms * n / (1e3 * wall):.1%} of the loop")
+
+    paths = [os.path.join(loop_ds, "cFrame", f"dynaCam{i}.bmp")
+             for i in range(1, N_LOOP_FRAMES)]
+    t0 = time.perf_counter()
+    for _ in native_io.NativeFrameLoader(paths, cfg.cam_h, cfg.cam_w,
+                                         slots=8, threads=4):
+        pass
+    log(f"e2e loop: the same frames read by the native pool alone (8 "
+        f"slots, 4 threads, after the runs) "
+        f"{1e3 * (time.perf_counter() - t0) / len(paths):.3f} ms a frame")
+    for name in ("locked", "chunk_locked", "xyz"):
+        summary = next(r for r in run_records(os.path.join(WORK, name))
+                       if r.get("writer"))
+        m = summary["writer_frames"]
+        log(f"e2e writer {name}: device-to-host copy "
+            f"{summary['writer_copy_ms'] / m:.4f} ms a frame (pinned, "
+            f"waited on by the writer thread), total "
+            f"{summary['writer_total_ms'] / m:.3f} ms a frame")
+    maps = [torch.from_numpy(z.astype(np.float32)).cuda() for _ in range(3)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        for a in maps:
+            a.cpu()
+    pageable = 1e3 * (time.perf_counter() - t0) / 10
+    hosts = [torch.empty(a.shape, pin_memory=True) for a in maps]
+    t0 = time.perf_counter()
+    for _ in range(10):
+        for h, a in zip(hosts, maps):
+            h.copy_(a, non_blocking=True)
+        torch.cuda.synchronize()
+    pinned = 1e3 * (time.perf_counter() - t0) / 10
+    log(f"e2e writer: the 3 maps of a frame device-to-host here, host wall "
+        f"{pageable:.4f} ms pageable (.cpu(), the parent's writer) and "
+        f"{pinned:.4f} ms pinned (non-blocking copies, one synchronize)")
+
+    dev = torch.device("cuda", 0)
+    tables = build_tables(calib, cfg.cam_h, cfg.cam_w, dev)
+    state = init_tracker(torch.from_numpy(frames[0]).to(dev),
+                         torch.from_numpy(pus[0].astype(np.float32)).to(dev),
+                         torch.from_numpy(zs[0].astype(np.float32)).to(dev),
+                         cfg)
+    reset_counts()
+    ov = streaming.measure_overlap(state, list(frames[1:9]), tables, cfg,
+                                   compute_repeats="auto")
+    log(f"measure_overlap at {cfg.cam_h}x{cfg.cam_w}, open-loop step, "
+        f"compute_repeats='auto', on {card}: {json.dumps(ov)}")
+    require(ov["pipelined_ms"] > 0 and ov["sequential_ms"] > 0
+            and 0.0 <= ov["overlap_efficiency"] <= 1.0, f"overlap {ov}")
+
+
+def capture_and_golden(launches):
+    """Phase 5d: ``python -m slc_tpu_torch capture`` at the reference
+    config through ``main()``, then ``run`` on its dataset (frame 0
+    within 1.0 of z = 50 on > 99% of the points,
+    tests/test_capture.py:68); and the golden oracle at a small size: the
+    open-loop kernel with the reference's semantics against
+    ``golden.dynamic_step`` (P 1e-3, strips exact, tests/test_stripe.py:
+    68-84), the Gray decode and the merge on the card against
+    ``golden.decode_gray`` (exact) and ``golden.gray_assisted_merge``
+    (1e-3, tests/test_decode.py)."""
+    cfg = REFERENCE_CONFIG
+    cap = os.path.join(WORK, "cap")
+    require(slc_main(["capture", cap, "--scene", "plane", "--frames",
+                      str(N_CAPTURE_FRAMES)]) == 0, "capture failed")
+    out = os.path.join(WORK, "cap_run")
+    got = counted_run([cap, "--calib", os.path.join(cap, "parameters.yml"),
+                       "--out", out],
+                      lambda: {"grayphase": 2, "stripe": 1,
+                               "dynamic_step_lock": N_CAPTURE_FRAMES},
+                      native_expected(2 * cfg.gray_bits + cfg.phase_steps,
+                                      N_CAPTURE_FRAMES))
+    for k, v in got.items():
+        launches[k] += v
+    z = np.load(os.path.join(out, "iFrame.npz"))["z"]
+    near = float((np.abs(z[z > 0] - 50.0) < 1.0).mean())
+    last = np.load(os.path.join(out, f"cFrame{N_CAPTURE_FRAMES - 1}.npz"))
+    log(f"e2e capture at {cfg.cam_h}x{cfg.cam_w}: frame 0 within 1.0 of "
+        f"z = 50 on {near:.5f} of {int((z > 0).sum())} points (bar 0.99); "
+        f"frame {N_CAPTURE_FRAMES - 1} valid "
+        f"{float((last['z'] > 0).mean()):.4f}")
+    require(near > 0.99, f"captured frame 0: {near} within 1.0")
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(11)
+    h, w, window = 48, 64, 7
+    f0, f1 = (rng.integers(0, 256, size=(h, w), dtype=np.uint8)
+              for _ in range(2))
+    pu0 = rng.uniform(100.0, 500.0, size=(h, w))
+    sw0, sb0 = kstripe.stripe_regression_cuda(
+        torch.from_numpy(f0).to(dev), window, subpixel=False)
+    small = synthetic_calibration(cam_h=h, cam_w=w, pro_h=96, pro_w=640)
+    pu1, sw1, sb1, _, _, _ = kstep.dynamic_step_open_cuda(
+        torch.from_numpy(f1).to(dev), sw0, sb0,
+        torch.from_numpy(pu0.astype(np.float32)).to(dev),
+        build_tables(small, h, w, dev), window=window, subpixel=False,
+        scale_gradient=False, robust=False)
+    gw0, gb0 = golden.windowed_extrema(golden.box_sum_vertical(f0, window),
+                                       window)
+    g_pu1, g_sw1, g_sb1, _ = golden.dynamic_step(pu0, gw0, gb0, f1, window)
+    require(all(np.array_equal(a.cpu().numpy(), b) for a, b in
+                ((sw0, gw0), (sw1, g_sw1), (sb1, g_sb1))),
+            "stripe offsets differ from the golden oracle")
+    d_step = float(np.abs(pu1.cpu().numpy() - g_pu1).max())
+    gray = rng.integers(0, 256, size=(10, 8, 16), dtype=np.uint8)
+    gc = decode_gray(torch.from_numpy(gray).to(dev), 5, 640)
+    require(np.array_equal(gc.cpu().numpy(),
+                           golden.decode_gray(gray, 5, 640)),
+            "decode_gray differs from the golden oracle")
+    gb = rng.integers(0, 64, size=(32, 48)).astype(np.float64) * 20.0
+    ph = rng.uniform(0.0, 40.0, size=(32, 48))
+    merged = gray_assisted_merge(
+        torch.from_numpy(gb.astype(np.float32)).to(dev),
+        torch.from_numpy(ph.astype(np.float32)).to(dev), 20.0, 40.0)
+    d_merge = float(np.abs(merged.cpu().numpy()
+                           - golden.gray_assisted_merge(gb, ph, 20.0, 40.0))
+                    .max())
+    log(f"golden oracle: open-loop kernel (reference semantics, {h}x{w}, "
+        f"window {window}) P max|diff| {d_step:.3e} (bar 1e-3), strips "
+        f"exact; decode_gray exact; gray_assisted_merge max|diff| "
+        f"{d_merge:.3e} (bar 1e-3)")
+    require(d_step < 1e-3 and d_merge < 1e-3, "golden bars")
 
 
 def plain_render(z, fx, fy, cx, cy):
@@ -1290,7 +1548,9 @@ def main(argv=None) -> int:
         for k, v in got.items():
             launches[k] += v
         del inputs
-        gray_runs(launches)
+        run_errs = gray_runs(launches)
+        stream_runs(launches, run_errs, times)
+        capture_and_golden(launches)
         fringe_runs(dev, launches, level_ms)
         fusion_phase()
         fuse_cli_run()

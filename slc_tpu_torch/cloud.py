@@ -221,26 +221,42 @@ class AsyncCloudWriter:
     def submit(self, path: str, x, y, z) -> None:
         """Enqueue one frame's maps for background serialization.
 
-        INVARIANT: the contents of ``x``/``y``/``z`` must not change
-        after this call (slc_tpu/cloud.py:227-247). Tensors are held as
-        they are and copied to the host by the writer thread, which is
-        safe because every tracker step returns freshly allocated maps
-        and nothing writes into them afterwards; the device-to-host copy
-        is ordered after the step on the same stream. Anything else is
-        copied to a numpy array here.
+        CUDA tensors are copied into pinned host memory here, by
+        non-blocking copies on their device's current stream, and an
+        event is recorded after them: the copies are ordered after the
+        work that made the maps and before anything the caller queues
+        next, so the caller may overwrite the maps afterwards (a CUDA
+        graph's output buffers are, by the next replay). The writer
+        thread waits on the event. CPU tensors are held as they are:
+        nothing writes into a step's fresh maps afterwards
+        (slc_tpu/cloud.py:227-247). Anything else is copied to a numpy
+        array here.
         """
-        pinned = [a if isinstance(a, torch.Tensor) else np.array(a)
-                  for a in (x, y, z)]
-        self._q.put((path, *pinned))
+        maps, ready = [], None
+        for a in (x, y, z):
+            if isinstance(a, torch.Tensor) and a.device.type == "cuda":
+                host = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                host.copy_(a, non_blocking=True)
+                a = host
+                if ready is None:
+                    ready = torch.cuda.Event()
+            elif not isinstance(a, torch.Tensor):
+                a = np.array(a)
+            maps.append(a)
+        if ready is not None:
+            ready.record(torch.cuda.current_stream(z.device))
+        self._q.put((path, ready, *maps))
 
     def _run(self) -> None:
         while True:
             item = self._q.get()
             if item is None:
                 return
-            path, *maps = item
+            path, ready, *maps = item
             t0 = time.perf_counter()
             try:
+                if ready is not None:
+                    ready.synchronize()
                 x, y, z = (_host(a) for a in maps)
                 self.copy_wall_s += time.perf_counter() - t0
                 if self.fmt == "npz":
@@ -256,8 +272,9 @@ class AsyncCloudWriter:
         """Flush, join, and return a summary; raises the first write
         errors, if any (a silently lost frame is worse than a failed
         run). ``writer_total_ms`` is the thread's wall time over every
-        frame, ``writer_copy_ms`` the part of it that copied the maps to
-        the host (device to host for tensors on a card)."""
+        frame, ``writer_copy_ms`` the part of it spent getting the maps
+        to the host (for tensors on a card, waiting for the pinned
+        device-to-host copies that ``submit`` started)."""
         self._q.put(None)
         self._t.join()
         if self.errors:

@@ -99,20 +99,35 @@ def dynamic_step(state: TrackerState, frame: torch.Tensor,
     slc_tpu/dynamic.py:101-143 for each one's rationale. All three off
     plus no lock is the reference's exact semantics.
     """
-    kw = dict(window=cfg.reco_window, subpixel=subpixel,
-              scale_gradient=scale_gradient, robust=robust,
-              fov_min=cfg.fov_min, fov_max=cfg.fov_max, frac_bits=frac_bits)
-    if phase_lock is not None:
-        pu, sw, sb, z, x, y = dynamic_step_lock(
-            frame, state.strip_w, state.strip_b, state.proj_u, tables,
-            period=float(phase_lock), win_u=lock_win_u, win_v=lock_win_v,
-            **kw)
-    else:
-        pu, sw, sb, z, x, y = dynamic_step_open(
-            frame, state.strip_w, state.strip_b, state.proj_u, tables, **kw)
+    pu, sw, sb, z, x, y = step_maps(
+        state, frame, tables, cfg, scale_gradient, subpixel, robust,
+        phase_lock, lock_win_u, lock_win_v, frac_bits)
     new_state = TrackerState(proj_u=pu, strip_w=sw, strip_b=sb, z=z,
                              frame_idx=state.frame_idx + 1)
     return new_state, FrameResult(x=x, y=y, z=z, proj_u=pu)
+
+
+def step_maps(state: TrackerState, frame: torch.Tensor,
+              tables: TriangulationTables, cfg: SystemConfig,
+              scale_gradient: bool = True, subpixel: bool = True,
+              robust: bool = True, phase_lock: Optional[float] = None,
+              lock_win_u: int = 9, lock_win_v: int = 9,
+              frac_bits: int = 0, out=None) -> Tuple[torch.Tensor, ...]:
+    """The maps of :func:`dynamic_step`, (proj_u, strip_w, strip_b, z, x,
+    y). ``out`` (CUDA only): six maps the kernel writes instead of fresh
+    ones."""
+    kw = dict(window=cfg.reco_window, subpixel=subpixel,
+              scale_gradient=scale_gradient, robust=robust,
+              fov_min=cfg.fov_min, fov_max=cfg.fov_max, frac_bits=frac_bits)
+    if out is not None:
+        kw["out"] = out
+    if phase_lock is not None:
+        return dynamic_step_lock(
+            frame, state.strip_w, state.strip_b, state.proj_u, tables,
+            period=float(phase_lock), win_u=lock_win_u, win_v=lock_win_v,
+            **kw)
+    return dynamic_step_open(frame, state.strip_w, state.strip_b,
+                             state.proj_u, tables, **kw)
 
 
 def run_sequence(state: TrackerState, frames: torch.Tensor,

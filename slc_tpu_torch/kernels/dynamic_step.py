@@ -33,14 +33,15 @@ agree only under this precondition (slc_tpu tests/test_pallas.py:39-45).
 Each public function dispatches on the device of the frame: CPU tensors
 take the plain PyTorch version (the composite of slc_tpu/dynamic.py:
 183-202), CUDA tensors the kernel (or it raises). Every call returns
-freshly allocated maps; the carried state is never updated in place.
+freshly allocated maps unless the caller passes ``out`` (the streaming
+module's CUDA graphs do); the carried state is never updated in place.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -56,6 +57,7 @@ from slc_tpu_torch.ops.triangulate import triangulate_xyz
 
 #: (proj_u, strip_w, strip_b, z, x, y), each (H, W) float32.
 StepMaps = Tuple[torch.Tensor, ...]
+STEP_OUT = ("proj_u", "strip_w", "strip_b", "z", "x", "y")
 
 
 def _track_ref(frame, prev_sw, prev_sb, prev_pu, window, subpixel,
@@ -129,9 +131,26 @@ def _check_inputs(frame, prev_sw, prev_sb, prev_pu, tables, window,
     return dev, h, w
 
 
-def _empty_maps(h, w, dev):
-    return tuple(torch.empty((h, w), dtype=torch.float32, device=dev)
-                 for _ in range(6))
+def _out_maps(out, inputs, h, w, dev):
+    """Six fresh (H, W) float32 maps, or the caller's ``out`` after
+    checking it: contiguous float32 (H, W) maps on ``dev``, none
+    overlapping an input (the kernels read each input's neighbourhood
+    while other blocks write their outputs)."""
+    if out is None:
+        return tuple(torch.empty((h, w), dtype=torch.float32, device=dev)
+                     for _ in range(6))
+    out = tuple(out)
+    if len(out) != 6:
+        raise ValueError(f"out: expected 6 maps, got {len(out)}")
+    for name, t in zip(STEP_OUT, out):
+        _build.require(t, f"out.{name}", torch.float32, (h, w), dev)
+        lo = t.data_ptr()
+        for src in inputs:
+            s0 = src.data_ptr()
+            if lo < s0 + src.numel() * src.element_size() and \
+                    s0 < lo + t.numel() * t.element_size():
+                raise ValueError(f"out.{name} overlaps an input map")
+    return out
 
 
 def dynamic_step_open_cuda(frame: torch.Tensor, prev_sw: torch.Tensor,
@@ -140,13 +159,17 @@ def dynamic_step_open_cuda(frame: torch.Tensor, prev_sw: torch.Tensor,
                            subpixel: bool = True,
                            scale_gradient: bool = True, robust: bool = True,
                            fov_min: float = 10.0, fov_max: float = 100.0,
-                           frac_bits: int = 0) -> StepMaps:
+                           frac_bits: int = 0,
+                           out: Optional[StepMaps] = None) -> StepMaps:
     """The hand-written open-loop kernel (one launch). Inputs: u8 frame
-    and float32 carried maps, contiguous (H, W) on one CUDA device."""
+    and float32 carried maps, contiguous (H, W) on one CUDA device.
+    ``out``: six maps to write instead of fresh ones (a CUDA graph's
+    static buffers), none overlapping an input."""
     dev, h, w = _check_inputs(frame, prev_sw, prev_sb, prev_pu, tables,
                               window, frac_bits)
     fbits = fast_frac_bits(frac_bits, window, w, subpixel)
-    pu, sw, sb, z, x, y = out = _empty_maps(h, w, dev)
+    pu, sw, sb, z, x, y = out = _out_maps(
+        out, (frame, prev_sw, prev_sb, prev_pu), h, w, dev)
     tri = _build.tri_array(tables.coeffs, fov_min, fov_max)
     _build.launch(
         "slc_dynamic_step", dev, frame.data_ptr(), prev_sw.data_ptr(),
@@ -211,7 +234,8 @@ def dynamic_step_lock_cuda(frame: torch.Tensor, prev_sw: torch.Tensor,
                            win_v: int = 9, amp_floor: float = 8.0,
                            max_carrier_gradient: float = 2e-3,
                            frac_bits: int = 0,
-                           ablate: str = "") -> StepMaps:
+                           ablate: str = "",
+                           out: Optional[StepMaps] = None) -> StepMaps:
     """The hand-written locked step (four launches, see the module
     note). ``max_carrier_gradient`` 0 or inf turns the gate off (see
     :func:`gate_args`). Gate bands are GATE_BAND rows, aligned to row 0.
@@ -220,7 +244,8 @@ def dynamic_step_lock_cuda(frame: torch.Tensor, prev_sw: torch.Tensor,
     "dc" or "corr" stops after the track launch, after ``lock_dc`` or
     after ``lock_corr`` (C and S with the correction map and the gate
     partials), so that device timing splits the step by stage
-    (slc_tpu/pallas/dynamic_lock.py:316-319)."""
+    (slc_tpu/pallas/dynamic_lock.py:316-319). ``out`` as for
+    :func:`dynamic_step_open_cuda`."""
     if ablate not in _ABLATE:
         raise ValueError(f"ablate must be one of {sorted(_ABLATE)}, got "
                          f"{ablate!r}")
@@ -228,7 +253,8 @@ def dynamic_step_lock_cuda(frame: torch.Tensor, prev_sw: torch.Tensor,
                               window, frac_bits)
     check_lock_args(period, win_u, win_v)
     fbits = fast_frac_bits(frac_bits, window, w + 2 * win_u, subpixel)
-    pu, sw, sb, z, x, y = out = _empty_maps(h, w, dev)
+    pu, sw, sb, z, x, y = out = _out_maps(
+        out, (frame, prev_sw, prev_sb, prev_pu), h, w, dev)
     scratch, wu, wv = lock_buffers(h, w, win_u, win_v, dev)
     tri = _build.tri_array(tables.coeffs, fov_min, fov_max)
     _build.launch(

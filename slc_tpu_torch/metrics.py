@@ -17,13 +17,16 @@ from typing import Dict, List, Optional
 import torch
 
 
-def frame_stats(z: torch.Tensor) -> Dict[str, float]:
-    """Per-frame stats of a depth map (z > 0 is valid), reduced on the
-    device and read back in one transfer."""
+_STATS = ("valid_frac", "z_min", "z_max", "z_mean")
+
+
+def _stats_tensor(z: torch.Tensor) -> torch.Tensor:
+    """The four per-frame stats of one depth map, as a (4,) tensor on its
+    device."""
     valid = z > 0
     any_valid = valid.any()
     zero = torch.zeros((), dtype=z.dtype, device=z.device)
-    stats = torch.stack([
+    return torch.stack([
         valid.float().mean(),
         torch.where(any_valid, torch.where(valid, z, torch.inf).min(),
                     zero),
@@ -31,8 +34,21 @@ def frame_stats(z: torch.Tensor) -> Dict[str, float]:
                     zero),
         torch.where(valid, z, zero).sum()
         / valid.sum().clamp(min=1).to(z.dtype),
-    ]).tolist()
-    return dict(zip(("valid_frac", "z_min", "z_max", "z_mean"), stats))
+    ])
+
+
+def frame_stats(z: torch.Tensor) -> Dict[str, float]:
+    """Per-frame stats of a depth map (z > 0 is valid), reduced on the
+    device and read back in one transfer."""
+    return dict(zip(_STATS, _stats_tensor(z).tolist()))
+
+
+def frame_stats_many(zs) -> List[Dict[str, float]]:
+    """:func:`frame_stats` of each depth map of ``zs`` (a (K, H, W) stack
+    or a sequence of maps), the same reductions map by map, read back in
+    one transfer for all of them."""
+    rows = torch.stack([_stats_tensor(z) for z in zs]).tolist()
+    return [dict(zip(_STATS, row)) for row in rows]
 
 
 @dataclasses.dataclass
@@ -88,14 +104,16 @@ class MetricsLog:
 def stage(name: str, log: Optional[MetricsLog] = None,
           bytes_moved: Optional[int] = None, device=None):
     """Profiler annotation + wall clock. On a CUDA ``device`` the block
-    ends with ``torch.cuda.synchronize``, so the wall time covers the
-    device work launched inside it, not just its enqueueing."""
+    ends by synchronizing the device's current stream, so the wall time
+    covers the device work launched inside it, not just its enqueueing,
+    and not a copy that another stream runs meanwhile (the streaming
+    loop's transfer of the next frame)."""
     device = torch.device(device) if device is not None else None
     with torch.profiler.record_function(name):
         t0 = time.perf_counter()
         yield
         if device is not None and device.type == "cuda":
-            torch.cuda.synchronize(device)
+            torch.cuda.current_stream(device).synchronize()
         wall = time.perf_counter() - t0
     if log is not None:
         log.log_stage(name, wall, bytes_moved)

@@ -28,11 +28,13 @@ from slc_tpu_torch.config import HeterodyneConfig, SystemConfig
 from slc_tpu_torch.dynamic import dynamic_step, init_tracker, reanchor
 from slc_tpu_torch.io.dataset import FaultInjector, ReplayDataset
 from slc_tpu_torch.io.opencv_yaml import load_calibration
-from slc_tpu_torch.metrics import MetricsLog, frame_stats, stage
+from slc_tpu_torch.metrics import (MetricsLog, frame_stats,
+                                   frame_stats_many, stage)
 from slc_tpu_torch.ops.demod import estimate_period, suggest_lock_window
-from slc_tpu_torch.pipeline import (decode_first_frame,
+from slc_tpu_torch.pipeline import (FrameResult, decode_first_frame,
                                     decode_heterodyne_frame,
                                     decode_spatial_frame)
+from slc_tpu_torch.streaming import HostStager, chunk_graph, chunk_step_xyz
 
 #: Bytes per pixel of one tracker step, lock on or off: frame u8 + three
 #: carried f32 maps in, six f32 maps out (slc_tpu adds 21 more for the
@@ -68,7 +70,8 @@ def run_replay(dataset_root: str, calib: "Calibration | str",
                refine_period: bool = False,
                out_format: str = "xyz",
                stream: bool = True,
-               frac_bits: int = 0) -> RunReport:
+               frac_bits: int = 0,
+               chunk: int = 1) -> RunReport:
     """Run the reconstruction over a replay dataset on ``device``.
 
     ``mode`` is the frame-0 absolute decode: "gray" (the reference's
@@ -90,8 +93,18 @@ def run_replay(dataset_root: str, calib: "Calibration | str",
     fraction quantized to that many bits; tracker init and re-anchor
     stay exact, as in slc_tpu). ``save_depth`` writes frame 0's depth
     and the camera intrinsics for ``fuse``; ``preview`` writes shaded
-    depth renders of frame 0 and of the last tracked frame. See
-    slc_tpu/runner.py:64-118 for the rationale of each.
+    depth renders of frame 0 and of the last tracked frame. ``chunk`` >
+    1 (with ``stream``) runs every K consecutive non-anchor frames as one
+    call of ``streaming.chunk_step_xyz`` (one CUDA graph replay on the
+    card): faults, anchors and the end of the sequence flush a partial
+    buffer frame by frame first, and checkpoints land on chunk
+    boundaries; on the card the run captures the chunk's graph once and
+    frees it at its end. Each dynamic frame is copied to the device
+    through pinned memory (``streaming.HostStager``): in stream mode one
+    frame ahead on a side stream, so the copy is out of the timed step;
+    in chunked mode straight into its slot of the graph's frame stack as
+    it is read. See slc_tpu/runner.py:64-118 for the rationale of
+    each.
 
     Outputs: <out_dir>/iFrame.<ext>, <out_dir>/cFrame{N}.<ext> ("txt"
     for ``out_format`` "xyz", "npz" for "npz") and metrics.jsonl; with
@@ -100,6 +113,8 @@ def run_replay(dataset_root: str, calib: "Calibration | str",
     """
     if mode not in ("gray", "heterodyne", "spatial"):
         raise ValueError(f"unknown mode {mode!r}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
     dev = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     if isinstance(calib, str):
@@ -261,10 +276,22 @@ def run_replay(dataset_root: str, calib: "Calibration | str",
             step(state, to_dev(base_ds.frame(start_frame)))
         except (IOError, OSError, ValueError):
             pass
+    # Chunked megastep (slc_tpu/runner.py:347-392): consecutive
+    # non-anchor frames run K at a time. On the card the chunk's graph
+    # is captured here, out of the timed stages (capturing launches
+    # nothing), and serves every chunk of this run.
+    chunked = stream and chunk > 1
+    graph = None
+    if chunked and dev.type == "cuda" and start_frame + chunk <= total:
+        h, w = state.z.shape
+        graph = chunk_graph(chunk, h, w, state.z.device, tables, cfg,
+                            scale_gradient, subpixel, robust, lock_period,
+                            lock_win, frac_bits=frac_bits)
 
     if stream:
+        # Read-ahead of at least one chunk.
         frame_source = ds.indexed_frames(start=start_frame, stop=total,
-                                         prefetch=8)
+                                         prefetch=max(8, chunk))
     else:
         def _strict_source():
             for i in range(start_frame, total):
@@ -273,6 +300,26 @@ def run_replay(dataset_root: str, calib: "Calibration | str",
                 except (IOError, OSError, ValueError) as e:
                     yield i, None, str(e)
         frame_source = _strict_source()
+    stager = HostStager(dev)
+
+    def staged_source():
+        """frame_source with each frame's copy to the device started, in
+        stream mode one frame ahead of the frame handed on. In chunked
+        mode frames are handed on as read: the loop copies each into its
+        slot of the chunk (the slot is read by the previous chunk's
+        replay until that is queued)."""
+        pending = None
+        for f, frame, err in frame_source:
+            item = (f, None if frame is None or chunked
+                    else stager.put(frame), frame, err)
+            if not stream or chunked:
+                yield item
+                continue
+            if pending is not None:
+                yield pending
+            pending = item
+        if pending is not None:
+            yield pending
 
     writer = None
     if write_clouds and stream:
@@ -286,21 +333,70 @@ def run_replay(dataset_root: str, calib: "Calibration | str",
             with stage("slc/write", log):
                 write_frame(path, res.x, res.y, res.z)
 
+    chunk_buf: list = []
+
+    def flush():
+        """Run the buffered frames: a full chunk as one megastep, a
+        partial one frame by frame; then its checkpoint."""
+        nonlocal state, done
+        if not chunk_buf:
+            return
+        idxs = [cf for cf, _ in chunk_buf]
+        if len(idxs) == chunk:
+            # On the card the frames are in the graph's stack already.
+            stack = graph.frames if graph is not None else torch.stack(
+                [sf.wait() for _, sf in chunk_buf])
+            with stage("slc/dynamic_chunk", log,
+                       bytes_moved=step_bytes * len(idxs), device=dev):
+                state, (zs, xs, ys) = chunk_step_xyz(
+                    state, stack, tables, cfg, scale_gradient, subpixel,
+                    robust, phase_lock=lock_period, lock_win_u=lock_win,
+                    frac_bits=frac_bits, graph=graph)
+            # The writer copies each map before the next chunk's replay
+            # (on the card the stacks are the graph's buffers).
+            for j, cf in enumerate(idxs):
+                emit(cf, FrameResult(x=xs[j], y=ys[j], z=zs[j],
+                                     proj_u=None))
+            for cf, stats in zip(idxs, frame_stats_many(zs)):
+                log.log_frame(cf, stats)
+        else:
+            for cf, sf in chunk_buf:
+                state, res = step(state, sf.wait())
+                emit(cf, res)
+                log.log_frame(cf, frame_stats(res.z))
+        if checkpoint_every and any(
+                cf % checkpoint_every == 0 for cf in idxs):
+            os.makedirs(ckpt_dir, exist_ok=True)
+            save_state(os.path.join(ckpt_dir, f"frame_{idxs[-1]}"), state)
+        done = idxs[-1]
+        chunk_buf.clear()
+
     done = start_frame - 1
     loop_exc = None
     try:
-        for f, frame, err in frame_source:
+        for f, staged, frame, err in staged_source():
             if frame is None:
                 # Failure recovery: skip the frame, carry the tracker
-                # state, record the fault.
+                # state, record the fault (buffered frames first, so the
+                # logged state is current).
+                flush()
                 log.log_frame(f, frame_stats(state.z), fault=err)
                 continue
+            if chunked and f not in anchor_set:
+                slot = None if graph is None else graph.frames[len(chunk_buf)]
+                chunk_buf.append((f, stager.put(frame, out=slot)))
+                if len(chunk_buf) == chunk:
+                    flush()
+                continue
+            if staged is None:      # an anchor of the chunked loop
+                staged = stager.put(frame)
             if f in anchor_set:
+                flush()
                 # Periodic absolute re-anchoring from an aFrame{f} group.
                 with stage("slc/reanchor", log, device=dev):
                     res = _decode_anchor(ds, f, tables, cfg, mode, het,
                                          to_dev, state.proj_u)
-                    state = reanchor(state, to_dev(frame), res.proj_u,
+                    state = reanchor(state, staged.wait(), res.proj_u,
                                      res.z, cfg, subpixel)
                     state = dataclasses.replace(state, frame_idx=f)
                 emit(f, res)
@@ -308,13 +404,14 @@ def run_replay(dataset_root: str, calib: "Calibration | str",
             else:
                 with stage("slc/dynamic_step", log, bytes_moved=step_bytes,
                            device=dev):
-                    state, res = step(state, to_dev(frame))
+                    state, res = step(state, staged.wait())
                 emit(f, res)
                 log.log_frame(f, frame_stats(res.z))
             if checkpoint_every and f % checkpoint_every == 0:
                 os.makedirs(ckpt_dir, exist_ok=True)
                 save_state(os.path.join(ckpt_dir, f"frame_{f}"), state)
             done = f
+        flush()
     except BaseException as e:
         loop_exc = e
         raise

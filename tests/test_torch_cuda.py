@@ -5,7 +5,11 @@ steps, the bilateral filter at 97x157, 1x1280 and 1024x1 and with 50%
 holes, the multigrid kernels at 97x201 and at the level shapes of both
 of chip_smoke.py's chains, the floors at widths 1270-1280; the preview
 render through the bilateral kernel and multi-scan registration on the
-card against the CPU, which has no kernel of its own). Marked
+card against the CPU, which has no kernel of its own; K steps as one
+CUDA graph against the steps one by one, bit for bit, directly and
+through the runner's chunk path; and the streaming loop's overlap of
+transfers with steps at 1216x1632, tests/test_streaming_tpu.py's bars).
+Marked
 ``cuda``: each test skips where there is no card. On the card:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -59,6 +63,11 @@ def _setup(h, w, dev):
     calib = synthetic_calibration(cam_h=h, cam_w=w, pro_h=cfg.pro_h,
                                   pro_w=cfg.pro_w)
     return cfg, calib, build_tables(calib, h, w, dev)
+
+
+def _bits(t):
+    """A float32 tensor's bits, for comparing maps that may hold NaN."""
+    return t.contiguous().view(torch.int32)
 
 
 def _close(got, want, atol):
@@ -466,3 +475,131 @@ def test_register_scans_on_the_card(dev):
     finally:
         torch.set_float32_matmul_precision(prec)
     assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def _moving_plane(dev, h, w, n, dz=0.05, cfg=None):
+    """n rendered frames of a moving plane and the tracker state at frame
+    0 on the card."""
+    from slc_tpu_torch.dynamic import init_tracker
+    if cfg is None:
+        cfg = SystemConfig(cam_h=h, cam_w=w, pro_h=h, pro_w=w)
+    calib = synthetic_calibration(cam_h=h, cam_w=w, pro_h=cfg.pro_h,
+                                  pro_w=cfg.pro_w)
+    tables = build_tables(calib, h, w, dev)
+    frames, zs, pus = synth.render_dynamic_sequence(
+        calib, cfg, n, z0=50.0, dz_per_frame=dz, stripe_period=12,
+        noise_sigma=1.0)
+    state = init_tracker(torch.from_numpy(frames[0]).to(dev),
+                         torch.from_numpy(pus[0].astype(np.float32)).to(dev),
+                         torch.from_numpy(zs[0].astype(np.float32)).to(dev),
+                         cfg)
+    return cfg, tables, frames, state
+
+
+def test_streaming_hides_transfers(dev):
+    """The port of tests/test_streaming_tpu.py: at 1216x1632 the
+    pipelined loop beats the strict sequential one and hides at least
+    half of the cheaper leg under the other (best of 3)."""
+    from slc_tpu_torch.streaming import measure_overlap
+    cfg, tables, frames, state = _moving_plane(dev, 1216, 1632, 9)
+    best = None
+    for _ in range(3):
+        ov = measure_overlap(state, frames[1:], tables, cfg)
+        if best is None or ov["overlap_efficiency"] > \
+                best["overlap_efficiency"]:
+            best = ov
+    print("overlap:", best)
+    assert best["speedup_vs_sequential"] > 1.1, best
+    assert best["overlap_efficiency"] >= 0.5, best
+
+
+@pytest.mark.parametrize("lock", [None, 12.0])
+def test_chunks_match_per_frame_on_the_card(dev, lock):
+    """K steps as one CUDA graph replay give the per-frame steps' maps bit
+    for bit (the same kernels on the same inputs), count K launches per
+    replay and none at capture, and return states that later replays do
+    not change; the output stacks are the graph's own buffers."""
+    from slc_tpu_torch import streaming
+    from slc_tpu_torch.dynamic import dynamic_step
+    cfg, tables, frames, state = _moving_plane(dev, 96, 160, 12, cfg=_setup(
+        96, 160, dev)[0])
+    kw = dict(phase_lock=lock, lock_win_u=21, lock_win_v=9)
+    wrapper = (kstep.dynamic_step_lock_cuda if lock
+               else kstep.dynamic_step_open_cuda)
+    dev_frames = torch.from_numpy(frames[1:]).to(dev)
+    st, ref = state, []
+    for f in dev_frames:
+        st, res = dynamic_step(st, f, tables, cfg, **kw)
+        ref.append(res)
+    graph = streaming.chunk_graph(4, 96, 160, dev, tables, cfg,
+                                  phase_lock=lock, lock_win_u=21,
+                                  lock_win_v=9)   # capture only
+    wrapper.launches = 0
+    st, states, kept, bufs = state, [], [], set()
+    for c in range(2):
+        st, (zs, xs, ys) = streaming.chunk_step_xyz(
+            st, dev_frames[4 * c:4 * c + 4], tables, cfg, graph=graph, **kw)
+        bufs.add(zs.data_ptr())
+        for j in range(4):
+            for k, stack in (("z", zs), ("x", xs), ("y", ys)):
+                assert torch.equal(stack[j], getattr(ref[4 * c + j], k))
+        states.append(st)
+        kept.append([t.clone() for t in (st.proj_u, st.strip_w,
+                                         st.strip_b, st.z)])
+    assert wrapper.launches == 8
+    assert bufs == {graph.zs.data_ptr()}
+    with pytest.raises(ValueError, match="captured for other"):
+        streaming.chunk_step_xyz(st, dev_frames[:4], tables, cfg,
+                                 graph=graph, phase_lock=lock, lock_win_u=19,
+                                 lock_win_v=9)
+    # Staged straight into the graph's frame stack: no copy in run().
+    graph.frames.copy_(dev_frames[:4])
+    _, (zs, _, _) = streaming.chunk_step_xyz(state, graph.frames, tables,
+                                             cfg, graph=graph, **kw)
+    assert all(torch.equal(zs[j], ref[j].z) for j in range(4))
+    for s, k in zip(states, kept):
+        assert all(torch.equal(_bits(a), _bits(b)) for a, b in
+                   zip((s.proj_u, s.strip_w, s.strip_b, s.z), k))
+    assert torch.equal(_bits(states[-1].proj_u), _bits(ref[7].proj_u))
+    got = [z for _, zs in streaming.stream_chunks(
+        state, list(frames[1:]), tables, cfg, chunk=4, **kw)
+        for z in zs.clone()]
+    assert len(got) == 11
+    assert all(torch.equal(_bits(a), _bits(r.z)) for a, r in zip(got, ref))
+
+
+def test_chunked_run_matches_per_frame_on_the_card(dev, tmp_path):
+    """run_replay(chunk=4) on the card writes the per-frame run's clouds
+    bit for bit, with an anchor group splitting a chunk."""
+    import os
+    from slc_tpu_torch.io.dataset import (write_anchor_group,
+                                          write_replay_dataset)
+    from slc_tpu_torch.io.opencv_yaml import save_calibration
+    from slc_tpu_torch.runner import run_replay
+    cfg = SystemConfig(cam_h=96, cam_w=160, pro_h=96, pro_w=640,
+                       gray_bits=5)
+    calib = synthetic_calibration(cam_h=96, cam_w=160, pro_h=96, pro_w=640)
+    scene = synth.render_static_scene(calib, cfg, synth.plane_surface(50.0),
+                                      noise_sigma=1.0)
+    frames, _, _ = synth.render_dynamic_sequence(
+        calib, cfg, 14, z0=50.0, dz_per_frame=0.3, stripe_period=12,
+        noise_sigma=1.0)
+    root = str(tmp_path / "ds")
+    write_replay_dataset(root, scene.gray_images, scene.phase_images,
+                         frames, config_fields={"stripe_period": 12})
+    asc = synth.render_static_scene(calib, cfg,
+                                    synth.plane_surface(50.0 + 6 * 0.3),
+                                    noise_sigma=1.0, seed=6)
+    write_anchor_group(root, 6, asc.gray_images, asc.phase_images)
+    save_calibration(os.path.join(root, "parameters.yml"), calib)
+    for k in (1, 4):
+        run_replay(root, os.path.join(root, "parameters.yml"),
+                   str(tmp_path / f"c{k}"), cfg, device=dev, chunk=k,
+                   out_format="npz")
+    names = sorted(f for f in os.listdir(tmp_path / "c1")
+                   if f.endswith(".npz"))
+    assert len(names) == 14
+    for name in names:
+        a, b = (np.load(tmp_path / f"c{k}" / name) for k in (1, 4))
+        for m in ("x", "y", "z"):
+            assert np.array_equal(a[m].view(np.uint32), b[m].view(np.uint32))

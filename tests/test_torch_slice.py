@@ -6,6 +6,7 @@ Bars: z, x, y 4e-3; valid_frac 1e-3. Spatial clouds are compared on the
 interior [1:-1, 1:-1]: the port's bilateral filter takes out-of-image
 neighbours as missing where slc_tpu's XLA path wraps around."""
 
+import argparse
 import filecmp
 import json
 import os
@@ -241,14 +242,50 @@ def test_cli_runs_modes_on_cpu(tmp_path, fringe_dataset, mode, capsys):
     assert os.path.exists(os.path.join(out, f"cFrame{N_FRAMES - 1}.npz"))
 
 
-@pytest.mark.parametrize("flags", [["--chunk", "4"]])
-def test_cli_rejects_flags_not_ported(tmp_path, dataset, flags, capsys):
-    with pytest.raises(SystemExit) as e:
-        main(["run", dataset, "--calib",
-              os.path.join(dataset, "parameters.yml"), "--out",
-              str(tmp_path / "o"), "--device", "cpu", *flags])
-    assert e.value.code != 0
-    assert "not ported" in capsys.readouterr().err
+class _Parsed(Exception):
+    pass
+
+
+def _cli_options(cli, monkeypatch):
+    """{subcommand: its --options} of the parser that ``cli`` builds,
+    taken from the parser itself when ``cli`` parses. (Not from --help:
+    slc_tpu's ``run --help`` raises, its --refine-period help holding a
+    bare "%".)"""
+    def capture(self, *args, **kwargs):
+        raise _Parsed(self)
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
+    with pytest.raises(_Parsed) as e:
+        cli(["--help"])
+    monkeypatch.undo()
+    sub = next(a for a in e.value.args[0]._actions
+               if isinstance(a, argparse._SubParsersAction))
+    return {name: {o for a in p._actions for o in a.option_strings
+                   if o.startswith("--") and o != "--help"}
+            for name, p in sub.choices.items()}
+
+
+@pytest.mark.parametrize("cmd", ["run", "synth", "capture", "fuse"])
+def test_cli_surface_matches_slc_tpu(cmd, monkeypatch):
+    """Every subcommand of slc_tpu but ``bench`` exists in the port with
+    every one of its options; the port adds ``--device`` at most."""
+    want = _cli_options(j_main, monkeypatch)
+    got = _cli_options(main, monkeypatch)
+    assert set(want) - {"bench"} == set(got)
+    assert want[cmd] - got[cmd] == set(), f"{cmd}: options not ported"
+    assert got[cmd] - want[cmd] <= {"--device"}, \
+        f"{cmd}: options slc_tpu lacks"
+
+
+def test_cli_run_chunk_on_cpu(tmp_path, dataset, capsys):
+    out = str(tmp_path / "o")
+    assert main(["run", dataset, "--calib",
+                 os.path.join(dataset, "parameters.yml"), "--out", out,
+                 "--device", "cpu", "--chunk", "3", "--out-format", "npz",
+                 *_CFG_FLAGS]) == 0
+    assert "done: frames=7" in capsys.readouterr().out
+    recs = _metrics(out)
+    assert any("t_dynamic_chunk_ms" in r for r in recs)
+    assert os.path.exists(os.path.join(out, f"cFrame{N_FRAMES - 1}.npz"))
 
 
 def test_device_cuda_without_cuda_raises(tmp_path, dataset):
@@ -305,8 +342,8 @@ def test_npz_checkpoint_resumes_across_packages(tmp_path, dataset,
 
 def test_port_never_imports_jax(tmp_path):
     """With jax and slc_tpu made unimportable, synth --fringes -> run
-    --save-depth --preview in every mode -> fuse still works end to end
-    on the CPU."""
+    --save-depth --preview in every mode -> fuse, and capture -> run
+    --chunk 2, still work end to end on the CPU."""
     script = textwrap.dedent(f"""
         import sys
         sys.modules["jax"] = None
@@ -329,6 +366,13 @@ def test_port_never_imports_jax(tmp_path):
         assert main(["fuse", out + "/gray/depth_iFrame.npz",
                      out + "/spatial/depth_iFrame.npz", "--out",
                      out + "/fused", "--device", "cpu", "--rounds", "1"]) == 0
+        cap = {str(tmp_path / "cap")!r}
+        assert main(["capture", cap, "--scene", "plane", "--frames", "4",
+                     "--cam", "64x96", "--pro", "64x640",
+                     "--gray-bits", "5"]) == 0
+        assert main(["run", cap, "--calib", cap + "/parameters.yml",
+                     "--out", out + "/chunk", "--out-format", "npz",
+                     "--device", "cpu", "--chunk", "2"]) == 0
         loaded = [m for m, mod in sys.modules.items() if mod is not None
                   and m.split(".")[0] in ("jax", "jaxlib", "slc_tpu")]
         assert not loaded, loaded
