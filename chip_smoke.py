@@ -113,7 +113,26 @@ Run from the root of a checkout. In order it:
    wall time and its split by stage are printed; then ``python -m
    slc_tpu_torch fuse`` through ``main()`` on 3 depth files at 1024x1280
    must meet tests/test_fuse_cli.py's pose bar and write a fused.txt of
-   more than two scans' pixels.
+   more than two scans' pixels;
+7. the tile-parallel paths (``slc_tpu_torch.parallel``) on a world-size-1
+   NCCL process group and its 1x1x1 mesh at the reference config, each
+   run with the launch counts set to 0 just before and read just after:
+   ``tiled_absolute_decode`` equal to the plain decode on the card and
+   within phase 3's grayphase bars of the kernel; ``tiled_dynamic_step``
+   and ``tiled_batched_dynamic_step`` over phase 5's 30-frame gray
+   dataset (open loop), P within 1e-4 and z within 1e-3 of the plain
+   open-loop step on every frame, and the host wall per frame of the
+   three steps and the kernel step, in turns; ``tiled_unwrap_spatial`` on
+   the box-step scene of tests/test_unwrap_spatial.py at 1024x1280 and
+   1000x1270 against ``unwrap_spatial``: cg_iters within 1, P within
+   1e-3 off the zero-quality ring, the diagnostic counts printed side by
+   side, its wall; at 1000x1270 its replicated 500x635 level runs
+   ``mg_down`` and ``mg_up``, whose counts must be 2 per preconditioner
+   call x (cg_iters + 1) (no kernel at 1024x1280, whose levels stay
+   sharded down to 32x40; no kernel on the other tiled paths);
+   ``tiled_fuse_scans`` on bench.py's parity problem (16 scans, 128
+   landmarks) within 1e-4 of ``fusion.fuse_scans`` at the same damping;
+   and ``entry.dryrun_multichip`` with one NCCL rank per card of the host.
 
 ``--no-profiler`` leaves ``torch.profiler`` out of phase 4, as where it
 records no CUDA kernel. Any failure ends the script with a non-zero
@@ -1510,6 +1529,279 @@ def fringe_runs(dev, launches, level_ms):
     require(cong >= 0.99, f"spatial P congruent on only {cong}")
 
 
+def tiled_mg_visits(h, w):
+    """Launches of each multigrid kernel per preconditioner call of
+    ``tiled_unwrap_spatial`` on a 1x1 mesh: the single-device schedule
+    (:func:`mg_kernel_visits`) on the replicated levels only, those from
+    the first level whose tile has an odd side (or the coarsest) down."""
+    shapes = [(h, w)]
+    while min(shapes[-1]) > U.MG_COARSEST:
+        lh, lw = shapes[-1]
+        shapes.append((-(-lh // 2), -(-lw // 2)))
+    n_shard, (th, tw) = 0, (h, w)
+    while min(th, tw) > U.MG_COARSEST and th % 2 == 0 and tw % 2 == 0:
+        n_shard, th, tw = n_shard + 1, th // 2, tw // 2
+    return {k: v for k, v in mg_kernel_visits(h, w).items()
+            if k in shapes[n_shard:]}
+
+
+def unwrap_scene(h, w, seed=1234):
+    """tests/test_unwrap_spatial.py:111-126's box-step scene at (h, w): a
+    ramp 5 periods wide and 0.4 px a row, a raised box 3.7 periods high
+    with its 2-px edge ring at quality 0, noise 0.05, an anchor perturbed
+    by up to a third of a period. Returns (t, psi, q, anchor, good),
+    ``good`` the pixels off the ring."""
+    rng = np.random.default_rng(seed)
+    t = 32.0
+    x = (np.linspace(0, 5 * t, w)[None, :]
+         + 0.4 * np.arange(h)[:, None]).astype(np.float64)
+    box = np.zeros((h, w), bool)
+    box[h // 3: 2 * h // 3, w // 3: 2 * w // 3] = True
+    x = x + 3.7 * t * box
+    psi = np.mod(x + rng.normal(0, 0.05, (h, w)), t).astype(np.float32)
+    inner = np.zeros_like(box)
+    inner[h // 3 + 2: 2 * h // 3 - 2, w // 3 + 2: 2 * w // 3 - 2] = True
+    outer = np.zeros_like(box)
+    outer[h // 3 - 2: 2 * h // 3 + 2, w // 3 - 2: 2 * w // 3 + 2] = True
+    ring = outer & ~inner
+    q = np.where(ring, 0.0, 1.0).astype(np.float32)
+    anchor = (x + rng.uniform(-t / 3, t / 3, x.shape)).astype(np.float32)
+    return t, psi, q, anchor, ~ring
+
+
+def counted(fn, want, what):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after; the counts must equal ``want`` (others 0). Returns (fn's
+    result, the counts)."""
+    reset_counts()
+    out = fn()
+    got = read_counts()
+    expect = {k: 0 for k in WRAPPERS}
+    expect.update(want(out) if callable(want) else want)
+    log(f"parallel: {what} launches {got}")
+    require(got == expect, f"{what}: launch counts {got} != {expect}")
+    return out, got
+
+
+def wall_per_call_ms(fn, calls):
+    """Host wall of ``calls`` calls of ``fn`` ending in a synchronise,
+    per call, after one warm-up call."""
+    fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(calls):
+        fn(i)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / calls
+
+
+def parallel_phase(dev, launches):
+    """Phase 7: the tile-parallel paths (``slc_tpu_torch.parallel``) on a
+    world-size-1 NCCL mesh at the reference config, each against the
+    port's single-device function on the card; then
+    ``dryrun_multichip`` over every card of the host."""
+    from slc_tpu_torch.dynamic import TrackerState
+    from slc_tpu_torch.entry import dryrun_multichip
+    from slc_tpu_torch.parallel import (gather_image, launch as plaunch,
+                                        shard_image, tile_mesh,
+                                        tiled_absolute_decode,
+                                        tiled_batched_dynamic_step,
+                                        tiled_dynamic_step,
+                                        tiled_stripe_regression,
+                                        tiled_unwrap_spatial)
+    from slc_tpu_torch.parallel.fusion_tiled import (fusion_mesh,
+                                                     shard_landmarks,
+                                                     tiled_fuse_scans)
+    from slc_tpu_torch.parallel.mesh import mesh_dims
+
+    card = card_line()
+    ctx = plaunch.initialize(
+        "file://" + os.path.join(WORK, "nccl_store"), 1, 0, device="cuda",
+        timeout_s=300)
+    require(ctx.backend == "nccl" and ctx.process_count == 1,
+            f"parallel: joined {ctx}")
+    try:
+        mesh = tile_mesh()
+        log(f"parallel: NCCL process group of {ctx.process_count}, mesh "
+            f"{mesh_dims(mesh)} on {ctx.device}")
+        cfg = REFERENCE_CONFIG
+        calib = synthetic_calibration(cam_h=cfg.cam_h, cam_w=cfg.cam_w,
+                                      pro_h=cfg.pro_h, pro_w=cfg.pro_w)
+        tables = build_tables(calib, cfg.cam_h, cfg.cam_w, dev)
+
+        # 7a: the absolute decode; no kernel on the tiled path.
+        scene = synth.render_static_scene(calib, cfg,
+                                          synth.plane_surface(50.0),
+                                          noise_sigma=1.0)
+        gray = torch.from_numpy(scene.gray_images).to(dev)
+        phase = torch.from_numpy(scene.phase_images).to(dev)
+        got, _ = counted(lambda: tiled_absolute_decode(
+            shard_image(gray, mesh), shard_image(phase, mesh), tables, cfg,
+            mesh), {}, "tiled_absolute_decode")
+        keys = ("proj_u", "x", "y", "z")
+        got = tuple(gather_image(getattr(got, k), mesh) for k in keys)
+        x, y, z, pu = kgray.grayphase_decode_ref(gray, phase, tables, cfg)
+        same = all(torch.equal(g, e) for g, e in zip(got, (pu, x, y, z)))
+        log(f"parallel: tiled absolute decode {cfg.cam_h}x{cfg.cam_w} "
+            f"{'equal to' if same else 'DIFFERS from'} the plain decode")
+        require(same, "tiled absolute decode differs from the plain one")
+        x, y, z, pu = kgray.grayphase_decode_cuda(gray, phase, tables, cfg)
+        compare("grayphase", got, (pu, x, y, z), keys, {})
+
+        # 7b: the open-loop steps over phase 5's 30-frame gray dataset.
+        frames, zs, pus = synth.render_dynamic_sequence(
+            calib, cfg, N_FRAMES, z0=50.0, dz_per_frame=0.3,
+            stripe_period=int(LOCK_T), noise_sigma=1.0)
+        frames = torch.from_numpy(frames).to(dev)
+        sw, sb = tiled_stripe_regression(frames[0], cfg, mesh)
+        init = TrackerState(proj_u=torch.from_numpy(pus[0]).float().to(dev),
+                            strip_w=sw, strip_b=sb,
+                            z=torch.from_numpy(zs[0]).float().to(dev),
+                            frame_idx=0)
+        kw = dict(window=cfg.reco_window, fov_min=cfg.fov_min,
+                  fov_max=cfg.fov_max)
+
+        def plain_step(st, f):
+            out = kstep.dynamic_step_open_ref(
+                frames[f], st.strip_w, st.strip_b, st.proj_u, tables, **kw)
+            return TrackerState(*out[:4], frame_idx=st.frame_idx + 1)
+
+        def batched_step(st, f):
+            new, _, met = tiled_batched_dynamic_step(
+                TrackerState(*(a[None] for a in (st.proj_u, st.strip_w,
+                                                  st.strip_b, st.z)),
+                             frame_idx=st.frame_idx),
+                frames[f][None], tables, cfg, mesh)
+            return TrackerState(new.proj_u[0], new.strip_w[0],
+                                new.strip_b[0], new.z[0], new.frame_idx)
+
+        def run(step):
+            st, out = init, []
+            for f in range(1, N_FRAMES):
+                st = step(st, f)
+                out.append((st.proj_u, st.z))
+            return out
+
+        want = run(plain_step)
+        worst = {}
+        for name, step in (
+                ("tiled_dynamic_step",
+                 lambda st, f: tiled_dynamic_step(st, frames[f], tables, cfg,
+                                                  mesh)[0]),
+                ("tiled_batched_dynamic_step", batched_step)):
+            got, _ = counted(lambda: run(step), {}, name)
+            err_p = max(float((g[0] - e[0]).abs().max())
+                        for g, e in zip(got, want))
+            err_z = max(float((g[1] - e[1]).abs().max())
+                        for g, e in zip(got, want))
+            worst[name] = (err_p, err_z)
+            log(f"parallel: {name} over {N_FRAMES - 1} frames vs the plain "
+                f"open-loop step: max|dP| {err_p:.3e} (bar 1e-4), max|dz| "
+                f"{err_z:.3e} (bar 1e-3)")
+            require(err_p <= 1e-4 and err_z <= 1e-3,
+                    f"{name}: P {err_p}, z {err_z} off the plain step")
+
+        def kernel_step(f):
+            kstep.dynamic_step_open_cuda(frames[f], init.strip_w,
+                                         init.strip_b, init.proj_u, tables,
+                                         **kw)
+
+        calls = {
+            "plain": lambda f: plain_step(init, 1 + f % (N_FRAMES - 1)),
+            "tiled": lambda f: tiled_dynamic_step(
+                init, frames[1 + f % (N_FRAMES - 1)], tables, cfg, mesh),
+            "tiled_batched": lambda f: batched_step(
+                init, 1 + f % (N_FRAMES - 1)),
+            "kernel": lambda f: kernel_step(1 + f % (N_FRAMES - 1))}
+        walls = {k: [] for k in calls}
+        for name in list(calls) + list(calls)[::-1]:
+            walls[name].append(wall_per_call_ms(calls[name], N_FRAMES - 1))
+        log(f"parallel on {card}: host wall per frame of the open-loop step "
+            f"at {cfg.cam_h}x{cfg.cam_w} ({N_FRAMES - 1} calls ending in a "
+            f"synchronise, two readings in turns): " + "; ".join(
+                f"{k} {', '.join(f'{v:.4f}' for v in vs)} ms"
+                for k, vs in walls.items()))
+
+        # 7c: the spatial unwrap; mg_down / mg_up run on the replicated
+        # levels of at least MG_KERNEL_MIN px.
+        for h, w in SHAPES:
+            t, psi, q, anchor, good = unwrap_scene(h, w)
+            psi, q, anchor = (torch.from_numpy(a).to(dev)
+                              for a in (psi, q, anchor))
+            per_call = sum(tiled_mg_visits(h, w).values())
+
+            def tiled():
+                return tiled_unwrap_spatial(
+                    shard_image(psi, mesh), t, mesh,
+                    quality=shard_image(q, mesh), max_iters=800,
+                    anchor=shard_image(anchor, mesh), return_info=True)
+
+            tiled()                                        # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (p_t, info_t), got = counted(
+                tiled, lambda out: {
+                    "mg_down": per_call * (out[1]["cg_iters"] + 1),
+                    "mg_up": per_call * (out[1]["cg_iters"] + 1)},
+                f"tiled_unwrap_spatial {h}x{w}")
+            torch.cuda.synchronize()
+            wall_t = 1e3 * (time.perf_counter() - t0)
+            for k, v in got.items():
+                launches[k] += v
+            if (h, w) == SHAPES[1]:
+                require(got["mg_down"] > 0 and got["mg_up"] > 0,
+                        f"tiled unwrap at {h}x{w} launched no multigrid "
+                        f"kernel")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p_s, info_s = U.unwrap_spatial(psi, t, quality=q, max_iters=800,
+                                           anchor=anchor, return_info=True)
+            torch.cuda.synchronize()
+            wall_s = 1e3 * (time.perf_counter() - t0)
+            p_t = gather_image(p_t, mesh)
+            g = torch.from_numpy(good).to(dev)
+            err = float(torch.where(g, (p_t - p_s).abs(), 0.0).max())
+            diag = ("cg_iters", "residue_count", "suspect_count",
+                    "anchor_disagreement_count")
+            log(f"parallel on {card}: tiled_unwrap_spatial {h}x{w}: wall "
+                f"{wall_t:.1f} ms, cg_iters {info_t['cg_iters']}, "
+                f"{per_call} launches of each multigrid kernel per "
+                f"preconditioner call; unwrap_spatial {wall_s:.1f} ms; "
+                f"max|dP| off the ring {err:.3e} (bar 1e-3); tiled / "
+                f"single: " + ", ".join(
+                    f"{k} {int(info_t[k])} / {int(info_s[k])}"
+                    for k in diag))
+            require(abs(info_t["cg_iters"] - info_s["cg_iters"]) <= 1,
+                    f"tiled unwrap {h}x{w}: cg_iters {info_t['cg_iters']} "
+                    f"vs {info_s['cg_iters']}")
+            require(err <= 1e-3, f"tiled unwrap {h}x{w}: P off by {err}")
+
+        # 7d: landmark-sharded fusion on bench.py:427-431's parity problem,
+        # against the single-device solver at the same damping.
+        obs, mask, _, _ = fusion.synthetic_problem(
+            np.random.default_rng(5), s=16, l=128, noise=0.01, device=dev)
+        fmesh = fusion_mesh()
+        rot_d, trans_d, _ = tiled_fuse_scans(
+            *shard_landmarks(fmesh, obs, mask), fmesh, iters=10)
+        rot_1, trans_1, _ = fusion.fuse_scans(obs, mask, iters=10,
+                                              damping=1e-6)
+        delta = max(float((rot_d - rot_1).abs().max()),
+                    float((trans_d - trans_1).abs().max()))
+        log(f"parallel: tiled_fuse_scans (16 scans, 128 landmarks) vs "
+            f"fuse_scans: max|diff| {delta:.3e} (bar 1e-4)")
+        require(delta < 1e-4, f"tiled fusion off by {delta}")
+    finally:
+        plaunch.shutdown()
+
+    # 7e: every card of this host, one rank each.
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    out = dryrun_multichip(n, timeout_s=600)
+    log(f"parallel: dryrun_multichip({n}) on {card}: {out['line']} "
+        f"({time.perf_counter() - t0:.1f} s with the ranks' start)")
+    require(out["backend"] == "nccl", f"dryrun backend {out['backend']}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--no-profiler", action="store_true",
@@ -1554,6 +1846,7 @@ def main(argv=None) -> int:
         fringe_runs(dev, launches, level_ms)
         fusion_phase()
         fuse_cli_run()
+        parallel_phase(dev, launches)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

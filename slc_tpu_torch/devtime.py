@@ -19,6 +19,9 @@ a device time never falls back to a wall clock.
 
 ``count_ops`` counts the arithmetic of a call from the operators it
 dispatches, the operations side of a roofline bound; it runs anywhere.
+``collective_bytes`` counts the bytes a rank exchanges in one call of a
+tile-parallel function (slc_tpu/devtime.py:91 counts them from compiled
+HLO, which torch has not); it runs anywhere too.
 """
 
 from __future__ import annotations
@@ -157,6 +160,28 @@ def count_ops(fn: Callable[[], object]) -> int:
     with counter:
         fn()
     return counter.ops
+
+
+def collective_bytes(fn: Callable[[], object]) -> Dict[str, int]:
+    """The bytes this rank takes in through collectives in one call of
+    ``fn``, in slc_tpu's dict of ``hlo_collective_bytes``
+    (slc_tpu/devtime.py:91): ``collective-permute`` (halo slabs received,
+    zero-filled ones included, as a ``ppermute``'s result shape counts
+    them), ``all-reduce`` (each reduced tensor once), ``all-gather``
+    (each result), ``reduce-scatter`` (none in the port), ``ops`` and
+    ``total``. Read from the counters of ``parallel.halo``, through which
+    every collective of ``slc_tpu_torch.parallel`` goes; runs ``fn``
+    once."""
+    from slc_tpu_torch.parallel import halo
+    halo.reset_counts()
+    fn()
+    out = {k: halo.COUNTS[k] for k in ("collective-permute", "all-reduce",
+                                       "all-gather")}
+    out["reduce-scatter"] = 0
+    out["ops"] = halo.COUNTS["ops"]
+    out["total"] = sum(out[k] for k in ("collective-permute", "all-reduce",
+                                        "all-gather", "reduce-scatter"))
+    return out
 
 
 #: Replays of the graph that ``graph_time_s`` times.

@@ -153,13 +153,20 @@ def _schur_reduce(h_cc, b_c, h_ll, b_l, h_cl, damping):
     return s_off, rhs_red, h_ll_inv, info.sum()
 
 
-def _gn_step(rot, trans, landmarks, obs, mask, damping):
-    """One Gauss-Newton step; returns (rot, trans, landmarks, info)."""
+def _gn_step(rot, trans, landmarks, obs, mask, damping, reduce_fn=None):
+    """One Gauss-Newton step; returns (rot, trans, landmarks, info).
+    ``reduce_fn`` sums the Schur terms over landmark shards (an
+    all-reduce in ``parallel.fusion_tiled``; none on one device), the
+    landmark solves' ``info`` with them, so that every shard sees the
+    same total and :func:`check_info` raises on all of them or none."""
     s = rot.shape[0]
     h_cc, b_c, h_ll, b_l, h_cl, _ = _gn_terms(rot, trans, landmarks, obs,
                                               mask)
     s_off, rhs_red, h_ll_inv, info = _schur_reduce(h_cc, b_c, h_ll, b_l,
                                                    h_cl, damping)
+    if reduce_fn is not None:
+        h_cc, s_off, rhs_red, info = (reduce_fn(h_cc), reduce_fn(s_off),
+                                      reduce_fn(rhs_red), reduce_fn(info))
 
     diag_cc = torch.einsum("sii->si", h_cc)
     eye6 = torch.eye(6, dtype=h_cc.dtype, device=h_cc.device)
@@ -187,10 +194,13 @@ def _gn_step(rot, trans, landmarks, obs, mask, damping):
 
 
 @highest_precision
-def gn_step(rot, trans, landmarks, obs, mask, damping: float = 1e-3):
-    """One Gauss-Newton step of the point-to-point bundle adjustment.
-    Returns (rot, trans, landmarks)."""
-    *out, info = _gn_step(rot, trans, landmarks, obs, mask, damping)
+def gn_step(rot, trans, landmarks, obs, mask, damping: float = 1e-3,
+            reduce_fn=None):
+    """One Gauss-Newton step of the point-to-point bundle adjustment
+    (``reduce_fn`` as in slc_tpu/fusion.py:131-144: it sums the Schur
+    terms across landmark shards). Returns (rot, trans, landmarks)."""
+    *out, info = _gn_step(rot, trans, landmarks, obs, mask, damping,
+                          reduce_fn)
     check_info(info, "gn_step")
     return tuple(out)
 
@@ -226,15 +236,21 @@ def _gn_terms_p2l(rot, trans, landmarks, normals, obs, mask, center):
     return h_cc, b_c, e
 
 
-def _gn_step_p2l(rot, trans, landmarks, normals, obs, mask, damping):
-    """One point-to-plane step; returns (rot, trans, landmarks, info)."""
+def _gn_step_p2l(rot, trans, landmarks, normals, obs, mask, damping,
+                 reduce_fn=None):
+    """One point-to-plane step; returns (rot, trans, landmarks, info).
+    ``reduce_fn`` sums the centroids and the pose blocks over landmark
+    shards (slc_tpu/fusion.py:206-219); the solve is then the same on
+    every shard, and so is its ``info``."""
+    red = reduce_fn if reduce_fn is not None else (lambda x: x)
     pred = torch.einsum("sij,slj->sli", rot, obs) + trans[:, None, :]
-    csum = (pred * mask[..., None]).sum(dim=1)               # (S,3)
-    nobs = mask.sum(dim=1).clamp_min(1.0)                    # (S,)
+    csum = red((pred * mask[..., None]).sum(dim=1))          # (S,3)
+    nobs = red(mask.sum(dim=1)).clamp_min(1.0)               # (S,)
     center = csum / nobs[:, None]
 
     h_cc, b_c, _ = _gn_terms_p2l(rot, trans, landmarks, normals, obs,
                                  mask, center)
+    h_cc, b_c = red(h_cc), red(b_c)
     diag_cc = torch.einsum("sii->si", h_cc)
     eye6 = torch.eye(6, dtype=h_cc.dtype, device=h_cc.device)
     lm_term = damping * torch.diag_embed(diag_cc) + 1e-9 * eye6
@@ -252,7 +268,7 @@ def _gn_step_p2l(rot, trans, landmarks, normals, obs, mask, damping):
 
 @highest_precision
 def gn_step_p2l(rot, trans, landmarks, normals, obs, mask,
-                damping: float = 1e-3):
+                damping: float = 1e-3, reduce_fn=None):
     """One point-to-plane Gauss-Newton step over POSES ONLY.
 
     Landmarks stay fixed: a free landmark under scalar point-to-plane
@@ -261,9 +277,10 @@ def gn_step_p2l(rot, trans, landmarks, normals, obs, mask,
     ICP therefore treats the associated surface anchors as data; they
     are re-estimated only in the association round. With fixed
     landmarks the pose Hessian is block-diagonal (no Schur coupling).
-    Returns (rot, trans, landmarks)."""
+    ``reduce_fn`` sums over landmark shards. Returns (rot, trans,
+    landmarks)."""
     *out, info = _gn_step_p2l(rot, trans, landmarks, normals, obs, mask,
-                              damping)
+                              damping, reduce_fn)
     check_info(info, "gn_step_p2l")
     return tuple(out)
 

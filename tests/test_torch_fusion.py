@@ -166,6 +166,24 @@ def test_fuse_scans_matches_slc_tpu():
     assert float(fusion.ate_rmse(*got[:2], *got_p[2:])) < 0.05
 
 
+def test_reduce_fn_identity_is_no_reduce_fn():
+    """gn_step with an identity ``reduce_fn`` (the one-shard reduction) is
+    gn_step without one, bit for bit; it reduces the Schur terms and the
+    landmark solves' info code (slc_tpu/fusion.py:131-144)."""
+    _, (obs, mask, _, _) = _problem(s=8, l=96, noise=0.01)
+    args = tuple(map(_t, (*_init(np.asarray(obs), np.asarray(mask)), obs,
+                          mask)))
+    seen = []
+
+    def ident(v):
+        seen.append(tuple(v.shape))
+        return v
+    for got, want in zip(fusion.gn_step(*args, reduce_fn=ident),
+                         fusion.gn_step(*args)):
+        assert torch.equal(got, want)
+    assert seen == [(8, 6, 6), (8, 6, 8, 6), (8, 6), ()]
+
+
 def test_check_info_raises_on_a_failed_factorization():
     fusion.check_info(torch.zeros((), dtype=torch.int64), "ok")
     with pytest.raises(RuntimeError, match="singular"):
@@ -282,6 +300,15 @@ def test_gn_step_p2l_matches_slc_tpu(four_scans):
     want = jfusion.gn_step_p2l(*map(jnp.asarray, args))
     _assert_poses(got, want, 1e-5, 1e-4)
     assert torch.equal(got[2], _t(lm))
+    seen = []
+
+    def ident(v):
+        seen.append(tuple(v.shape))
+        return v
+    for g, w in zip(fusion.gn_step_p2l(*map(_t, args), reduce_fn=ident),
+                    got):
+        assert torch.equal(g, w)
+    assert seen == [(4, 3), (4,), (4, 6, 6), (4, 6)]
 
 
 def test_grid_points_normals_matches_the_full_cloud(four_scans):

@@ -10,13 +10,17 @@ import torch
 import jax.numpy as jnp
 
 from slc_tpu.ops.filters import box_blur_3x3 as j_blur
+from slc_tpu.ops.stripe import box_sum_vertical_raw as j_box_raw
 from slc_tpu.ops.stripe import select_delta_p as j_select
 from slc_tpu.ops.stripe import stripe_regression as j_stripe
+from slc_tpu.ops.stripe import windowed_extrema_raw as j_extrema_raw
 from slc_tpu.pallas.stripe import stripe_regression_pallas
 
 from slc_tpu_torch.kernels.stripe import stripe_regression
 from slc_tpu_torch.ops.filters import box_blur_3x3
-from slc_tpu_torch.ops.stripe import select_delta_p
+from slc_tpu_torch.ops.stripe import (box_sum_vertical,
+                                      box_sum_vertical_raw, select_delta_p,
+                                      windowed_extrema, windowed_extrema_raw)
 
 torch.set_num_threads(2)
 
@@ -76,3 +80,27 @@ def test_stripe_rejects_windows_the_kernel_cannot_take():
             stripe_regression_cuda(frame, window)
     with pytest.raises(ValueError, match="cuda"):
         stripe_regression_cuda(frame, 21)
+
+
+@pytest.mark.parametrize("window", [5, 21])
+@pytest.mark.parametrize("subpixel", [False, True])
+def test_raw_stencils_match_jax(rng, window, subpixel):
+    """The unmasked cores the tile-parallel paths share
+    (slc_tpu/ops/stripe.py:35,68), border pixels included; the masked
+    stencils are the raw ones with the interior mask."""
+    frame = rng.integers(0, 256, size=(64, 96), dtype=np.uint8)
+    box = box_sum_vertical_raw(torch.from_numpy(frame), window)
+    jbox = j_box_raw(jnp.asarray(frame), window)
+    np.testing.assert_array_equal(box.numpy(), np.asarray(jbox))
+    raw = windowed_extrema_raw(box, window, subpixel)
+    for got, want in zip(raw, j_extrema_raw(jbox, window, subpixel)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+    r = window // 2
+    inner = np.zeros(frame.shape, bool)
+    inner[r:-r, r:-r] = True
+    masked = box_sum_vertical(torch.from_numpy(frame), window).numpy()
+    np.testing.assert_array_equal(masked, np.where(inner, box.numpy(), 0))
+    for got, want in zip(windowed_extrema(box, window, subpixel), raw):
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.where(inner, want.numpy(), 0))
