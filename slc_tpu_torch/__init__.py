@@ -8,5 +8,11 @@ device; kernels live in :mod:`slc_tpu_torch.kernels`.
 """
 
 from slc_tpu_torch.config import SystemConfig, REFERENCE_CONFIG
+from slc_tpu_torch.calib import Calibration, TriangulationTables
 
-__all__ = ["SystemConfig", "REFERENCE_CONFIG"]
+__all__ = [
+    "SystemConfig",
+    "REFERENCE_CONFIG",
+    "Calibration",
+    "TriangulationTables",
+]

@@ -145,3 +145,9 @@ def run_sequence(state: TrackerState, frames: torch.Tensor,
         y=torch.stack([r.y for r in results]),
         z=torch.stack([r.z for r in results]),
         proj_u=torch.stack([r.proj_u for r in results]))
+
+
+def delta_z(result_z: torch.Tensor) -> torch.Tensor:
+    """Per-frame depth change over a stacked (F, H, W) z sequence: the
+    reference's m_deltaZ diagnostic (CCalculation.cpp:772-775)."""
+    return torch.diff(result_z, dim=0)

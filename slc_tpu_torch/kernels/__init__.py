@@ -4,6 +4,8 @@ versions.
 Each module holds one kernel's wrapper (``*_cuda``, with a ``launches``
 count), its plain version (``*_ref``) and the public function that
 dispatches on the device: CPU tensors take the plain version, CUDA
-tensors the kernel. The CUDA sources live in ``csrc/`` and are built by
-:mod:`slc_tpu_torch.kernels._build` at first use.
+tensors the kernel. :mod:`~slc_tpu_torch.kernels.staging` is the one
+entry that is no TPU kernel's port: the frame stager's host-to-device
+copy, queued on a stream. The CUDA sources live in ``csrc/`` and are
+built by :mod:`slc_tpu_torch.kernels._build` at first use.
 """

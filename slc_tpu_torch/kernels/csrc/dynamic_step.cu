@@ -28,7 +28,8 @@
 //
 // The carrier gate spans all columns of a band, so no tile decides it
 // alone; that is why lock_corr and snap are separate launches. The lock's
-// only device-memory scratch is DC, the correction map and the partials.
+// only device-memory scratch is DC, the correction map and the partials
+// (and one float a band, where snap records the band's gate decision).
 //
 // The lock's launches (lock_dc, lock_corr, snap) are also the standalone
 // lock, slc_phase_lock, which replaces slc_tpu/pallas/phaselock.py:216
@@ -724,11 +725,13 @@ __global__ void lock_corr_kernel(const uint8_t* __restrict__ frame,
 // band's amplitude-gated mean gradient is within the threshold, then
 // triangulate. ``pu_in`` holds P', ``pu_out`` gets P; the locked step
 // passes one buffer for both (each thread reads, then writes, its own
-// pixel), the standalone lock a fresh output.
+// pixel), the standalone lock a fresh output. Each band's decision goes
+// to ``gate_out`` (1 applied, 0 gated off), for the caller to read.
 __global__ void snap_kernel(const float* pu_in, float* pu_out,
                             const float* __restrict__ corr,
                             const float* __restrict__ partial, int ntiles,
                             int gate_on, float thresh,
+                            float* __restrict__ gate_out,
                             float* __restrict__ z_out,
                             float* __restrict__ x_out,
                             float* __restrict__ y_out, int h, int w,
@@ -747,6 +750,7 @@ __global__ void snap_kernel(const float* pu_in, float* pu_out,
       g = fabsf(num / fmaxf(den, 1.0f)) <= thresh;
     }
     gate = g ? 1 : 0;
+    if (blockIdx.x == 0) gate_out[blockIdx.y] = g ? 1.0f : 0.0f;
   }
   __syncthreads();
   const int gx = blockIdx.x * kLockW + tx, y0 = blockIdx.y * band;
@@ -837,8 +841,9 @@ cudaError_t launch_lock(const uint8_t* frame, const float* pred,
     return err;
 
   snap_kernel<<<grid, block, 0, stream>>>(
-      pred, pu_out, corr, partial, n_tiles(w), gate_on, gate_thresh, z, x,
-      y, h, w, band, t);
+      pred, pu_out, corr, partial, n_tiles(w), gate_on, gate_thresh,
+      partial + 2 * (size_t)n_bands(h, band) * n_tiles(w), z, x, y, h, w,
+      band, t);
   return cudaGetLastError();
 }
 
@@ -858,9 +863,9 @@ extern "C" int slc_dynamic_step(const uint8_t* frame, const float* prev_sw,
 }
 
 // Floats of scratch the locked step and the standalone lock need: DC, the
-// correction map, and the band partials.
+// correction map, the band partials, and last each band's gate decision.
 extern "C" long slc_dynamic_step_lock_scratch(int h, int w, int band) {
-  return 2L * h * w + 2L * n_bands(h, band) * n_tiles(w);
+  return 2L * h * w + 2L * n_bands(h, band) * n_tiles(w) + n_bands(h, band);
 }
 
 // ``ablate`` (profiling only; the outputs are then garbage): 0 runs every

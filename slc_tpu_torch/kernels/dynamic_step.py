@@ -99,16 +99,19 @@ def dynamic_step_lock_ref(frame: torch.Tensor, prev_sw: torch.Tensor,
                           win_u: int = 21, win_v: int = 9,
                           amp_floor: float = 8.0,
                           max_carrier_gradient: float = 2e-3,
-                          frac_bits: int = 0) -> StepMaps:
+                          frac_bits: int = 0,
+                          gates: Optional[torch.Tensor] = None) -> StepMaps:
     """Plain PyTorch locked step: the open-loop integration, then the
-    lock-in correction (slc_tpu/dynamic.py:194-198)."""
+    lock-in correction (slc_tpu/dynamic.py:194-198). ``gates``: as for
+    :func:`slc_tpu_torch.ops.demod.stripe_phase_correction`."""
     fbits = fast_frac_bits(frac_bits, window, frame.shape[-1] + 2 * win_u,
                            subpixel)
     pu, sw, sb = _track_ref(frame, prev_sw, prev_sb, prev_pu, window,
                             subpixel, scale_gradient, robust, fbits)
     dpl, _ = stripe_phase_correction(frame, pu, period, win_u, win_v,
                                      amp_floor=amp_floor,
-                                     max_carrier_gradient=max_carrier_gradient)
+                                     max_carrier_gradient=max_carrier_gradient,
+                                     gates=gates)
     pu = pu + dpl
     x, y, z = triangulate_xyz(pu, tables, fov_min, fov_max)
     return pu, sw, sb, z, x, y
@@ -235,10 +238,14 @@ def dynamic_step_lock_cuda(frame: torch.Tensor, prev_sw: torch.Tensor,
                            max_carrier_gradient: float = 2e-3,
                            frac_bits: int = 0,
                            ablate: str = "",
-                           out: Optional[StepMaps] = None) -> StepMaps:
+                           out: Optional[StepMaps] = None,
+                           gates: Optional[torch.Tensor] = None) -> StepMaps:
     """The hand-written locked step (four launches, see the module
     note). ``max_carrier_gradient`` 0 or inf turns the gate off (see
     :func:`gate_args`). Gate bands are GATE_BAND rows, aligned to row 0.
+    ``gates`` (float32, one per band, on the frame's device) receives the
+    snap launch's decision per band: 1 where the correction was applied,
+    0 where the carrier gate zeroed it.
 
     ``ablate`` (profiling only; the outputs are then garbage): "track",
     "dc" or "corr" stops after the track launch, after ``lock_dc`` or
@@ -255,6 +262,9 @@ def dynamic_step_lock_cuda(frame: torch.Tensor, prev_sw: torch.Tensor,
     fbits = fast_frac_bits(frac_bits, window, w + 2 * win_u, subpixel)
     pu, sw, sb, z, x, y = out = _out_maps(
         out, (frame, prev_sw, prev_sb, prev_pu), h, w, dev)
+    n_bands = -(-h // GATE_BAND)
+    if gates is not None:
+        _build.require(gates, "gates", torch.float32, (n_bands,), dev)
     scratch, wu, wv = lock_buffers(h, w, win_u, win_v, dev)
     tri = _build.tri_array(tables.coeffs, fov_min, fov_max)
     _build.launch(
@@ -266,6 +276,8 @@ def dynamic_step_lock_cuda(frame: torch.Tensor, prev_sw: torch.Tensor,
         float(period), win_u, win_v, float(amp_floor),
         *gate_args(max_carrier_gradient), GATE_BAND, _ABLATE[ablate], tri)
     dynamic_step_lock_cuda.launches += 1
+    if gates is not None:
+        gates.copy_(scratch[-n_bands:])     # snap's decisions, last
     return out
 
 

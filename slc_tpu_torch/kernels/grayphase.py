@@ -29,16 +29,26 @@ from slc_tpu_torch.ops.unwrap import gray_assisted_merge
 Maps = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
+def absolute_projector_map(gray_images: torch.Tensor,
+                           phase_images: torch.Tensor,
+                           cfg: SystemConfig) -> torch.Tensor:
+    """Gray + phase-shift absolute decode of the projector map, plain
+    PyTorch on the images' device: the reference's frame-0 hot path
+    (FillFirstProjectorU, CCalculation.cpp:525-592;
+    slc_tpu/pipeline.py:46-54)."""
+    gray = decode_gray(gray_images, cfg.gray_bits, cfg.pro_w)
+    phase = decode_phase(phase_images, cfg.phase_period)
+    return gray_assisted_merge(gray, phase, cfg.gray_period,
+                               cfg.phase_period)
+
+
 def grayphase_decode_ref(gray_images: torch.Tensor,
                          phase_images: torch.Tensor,
                          tables: TriangulationTables, cfg: SystemConfig,
                          min_modulation: Optional[float] = None) -> Maps:
     """Plain PyTorch version: the composite path of
     slc_tpu/pipeline.py:92-98. Returns (x, y, z, proj_u)."""
-    gray = decode_gray(gray_images, cfg.gray_bits, cfg.pro_w)
-    phase = decode_phase(phase_images, cfg.phase_period)
-    proj_u = gray_assisted_merge(gray, phase, cfg.gray_period,
-                                 cfg.phase_period)
+    proj_u = absolute_projector_map(gray_images, phase_images, cfg)
     valid = None
     if min_modulation is not None:
         valid = modulation(phase_images) > min_modulation

@@ -25,7 +25,7 @@ from typing import Tuple
 import torch
 
 from slc_tpu_torch.kernels import _build
-from slc_tpu_torch.ops.stripe import box_sum_vertical, windowed_extrema
+from slc_tpu_torch.ops import stripe as ops_stripe
 
 Strips = Tuple[torch.Tensor, torch.Tensor]
 
@@ -67,8 +67,7 @@ def stripe_regression_ref(frame: torch.Tensor, window: int = 21,
     (slc_tpu/ops/stripe.py:151-158), with the fraction quantized when
     ``frac_bits`` > 0. Returns (strip_w, strip_b)."""
     fbits = fast_frac_bits(frac_bits, window, frame.shape[-1], subpixel)
-    return windowed_extrema(box_sum_vertical(frame, window), window,
-                            subpixel, fbits)
+    return ops_stripe.stripe_regression(frame, window, subpixel, fbits)
 
 
 def stripe_regression_cuda(frame: torch.Tensor, window: int = 21,

@@ -3,7 +3,8 @@ slc_tpu/metrics.py).
 
 Every frame yields a record (valid-pixel fraction, z range, wall-clock
 fps) and stages are timed under ``torch.profiler.record_function``
-annotations, so a profiler trace shows them by name.
+annotations, so a profiler trace (:func:`device_trace`) shows them by
+name.
 """
 
 from __future__ import annotations
@@ -11,11 +12,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import time
 from typing import Dict, List, Optional
 
 import torch
 
+from slc_tpu_torch import devtime
 
 _STATS = ("valid_frac", "z_min", "z_max", "z_mean")
 
@@ -117,3 +120,25 @@ def stage(name: str, log: Optional[MetricsLog] = None,
         wall = time.perf_counter() - t0
     if log is not None:
         log.log_stage(name, wall, bytes_moved)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str, device="cuda"):
+    """Profile the block with ``torch.profiler`` and write its Chrome
+    trace into ``log_dir`` (``trace_<pid>_<ns>.json``; slc_tpu's
+    ``jax.profiler`` trace). On a CUDA ``device`` the trace holds CPU and
+    CUDA activity; where CUPTI cannot trace the card, it raises
+    ``devtime.ProfilerUnavailable`` before the block runs and writes
+    nothing. ``device="cpu"`` traces CPU activity alone."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        if not devtime.profiler_sees_cuda():
+            raise devtime.ProfilerUnavailable(
+                "torch.profiler records no CUDA kernel in this process "
+                "(CUPTI tracing is not available): no device trace")
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    os.makedirs(log_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

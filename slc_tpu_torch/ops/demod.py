@@ -20,7 +20,7 @@ computes it outside any kernel.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,10 +78,43 @@ def _wrap(x: torch.Tensor) -> torch.Tensor:
     return x - _TWO_PI * torch.round(x / _TWO_PI)
 
 
+def lock_in(frame: torch.Tensor, proj_u_pred: torch.Tensor, period: float,
+            win_u: int, win_v: int, dtype=torch.float32
+            ) -> Tuple[torch.Tensor, ...]:
+    """The lock-in's per-pixel quantities (slc_tpu/ops/demod.py:113-201),
+    in float32 as :func:`stripe_phase_correction` computes them (or in
+    ``dtype``, float64 to check a float32 computation against): the
+    window's phase offset delta_phi = atan2(-S, C) in (-pi, pi], the two
+    arccos readings' wrapped distances d_pos, d_neg from the
+    window-corrected prediction, the sin^2 confidence and the amplitude.
+    Their branch points (delta_phi's and the readings' wraps at +-pi, the
+    choice |d_pos| = |d_neg|) and the amplitude gate are where two
+    correct float implementations may decide apart: the corrected P then
+    differs by up to one period."""
+    h, w = frame.shape
+    f = frame.to(dtype)
+    wgt = _tri_weight(h, w, win_v, win_u, frame.device).to(dtype)
+    dc = _tri_sum(f, win_v, win_u) / wgt
+    iac = f - dc
+    phi = (_TWO_PI / period) * proj_u_pred.to(dtype)
+    c = _tri_sum(iac * torch.cos(phi), win_v, win_u)
+    s = _tri_sum(iac * torch.sin(phi), win_v, win_u)
+    amp = torch.sqrt(c * c + s * s) / wgt
+    delta_phi = torch.atan2(-s, c)
+    cos_phi = (iac / torch.clamp(2.0 * amp, min=1e-6)).clamp(-1.0, 1.0)
+    phi_mag = torch.arccos(cos_phi)                     # [0, pi]
+    phi_ref = phi + delta_phi                           # window-corrected
+    d_pos = _wrap(phi_mag - phi_ref)
+    d_neg = _wrap(-phi_mag - phi_ref)
+    conf = 1.0 - cos_phi * cos_phi                      # sin^2(phi)
+    return delta_phi, d_pos, d_neg, conf, amp
+
+
 def stripe_phase_correction(frame: torch.Tensor, proj_u_pred: torch.Tensor,
                             period: float, win_u: int = 9,
                             win_v: int = 9, amp_floor: float = 8.0,
-                            max_carrier_gradient: float = 2e-3
+                            max_carrier_gradient: float = 2e-3,
+                            gates: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Lock-in demodulation of one dynamic stripe frame against the
     predicted projector map (slc_tpu/ops/demod.py:113-225).
@@ -95,31 +128,24 @@ def stripe_phase_correction(frame: torch.Tensor, proj_u_pred: torch.Tensor,
     ``max_carrier_gradient``: per GATE_BAND-row band, the amplitude-gated
     mean of the wrapped column gradient of delta_phi must stay within
     it, or the band's correction is zeroed (a mis-specified period
-    leaves a constant gradient). 0 or inf turns the gate off.
+    leaves a constant gradient). 0 or inf turns the gate off. ``gates``
+    (optional, float32, one per band) receives each band's decision: 1
+    where its correction is kept, 0 where the gate zeroed it.
 
     Returns (delta_p, amplitude): the additive projector-column
     correction (zero where gated) and the demodulated amplitude.
     """
-    h, w = frame.shape
-    f = frame.float()
-    wgt = _tri_weight(h, w, win_v, win_u, frame.device)
-    dc = _tri_sum(f, win_v, win_u) / wgt
-    iac = f - dc
-    phi = (_TWO_PI / period) * proj_u_pred.float()
-    c = _tri_sum(iac * torch.cos(phi), win_v, win_u)
-    s = _tri_sum(iac * torch.sin(phi), win_v, win_u)
-    amp = torch.sqrt(c * c + s * s) / wgt
-    delta_phi = torch.atan2(-s, c)
-    cos_phi = (iac / torch.clamp(2.0 * amp, min=1e-6)).clamp(-1.0, 1.0)
-    phi_mag = torch.arccos(cos_phi)                     # [0, pi]
-    phi_ref = phi + delta_phi                           # window-corrected
-    d_pos = _wrap(phi_mag - phi_ref)
-    d_neg = _wrap(-phi_mag - phi_ref)
+    h = frame.shape[0]
+    delta_phi, d_pos, d_neg, conf, amp = lock_in(frame, proj_u_pred, period,
+                                                 win_u, win_v)
     d_px = torch.where(d_pos.abs() <= d_neg.abs(), d_pos, d_neg)
-    conf = 1.0 - cos_phi * cos_phi                      # sin^2(phi)
     delta_p = (delta_phi + conf * d_px) * (period / _TWO_PI)
     ok = (amp > amp_floor) & (proj_u_pred > 0)
-    if max_carrier_gradient and math.isfinite(max_carrier_gradient):
+    gate_on = bool(max_carrier_gradient) and math.isfinite(
+        max_carrier_gradient)
+    if gates is not None and not gate_on:
+        gates.fill_(1.0)
+    if gate_on:
         gx = _wrap(delta_phi[:, 1:] - delta_phi[:, :-1])
         gm = (ok[:, 1:] & ok[:, :-1]).float()
         hb = -(-h // GATE_BAND) * GATE_BAND
@@ -129,6 +155,8 @@ def stripe_phase_correction(frame: torch.Tensor, proj_u_pred: torch.Tensor,
             return xp.reshape(hb // GATE_BAND, GATE_BAND, -1).sum((1, 2))
         g = band_sum(gx * gm) / torch.clamp(band_sum(gm), min=1.0)
         gate = g.abs() <= max_carrier_gradient
+        if gates is not None:
+            gates.copy_(gate)
         gate_rows = torch.repeat_interleave(gate, GATE_BAND)[:h]
         ok = ok & gate_rows[:, None]
     return torch.where(ok, delta_p, torch.zeros_like(delta_p)), amp

@@ -1,6 +1,7 @@
 """Stripe-extremum tracking for dynamic frames: the plain PyTorch
-composite (port of slc_tpu/ops/stripe.py). The hand-written kernel and
-the dispatching ``stripe_regression`` live in
+composite (port of slc_tpu/ops/stripe.py). :func:`stripe_regression`
+here is the plain version on any device; the hand-written kernel and the
+dispatching ``stripe_regression`` live in
 :mod:`slc_tpu_torch.kernels.stripe`.
 
 Reference behavior (DynaFrame/CCalculation.cpp:789-891), per frame:
@@ -142,6 +143,17 @@ def windowed_extrema(val_sum: torch.Tensor, window: int,
     zero = torch.zeros_like(val_sum)
     return (torch.where(interior, best_max_idx, zero),
             torch.where(interior, best_min_idx, zero))
+
+
+def stripe_regression(frame: torch.Tensor, window: int,
+                      subpixel: bool = False, fbits: int = 0
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full per-frame stripe tracking (CCalculation::StripRegression,
+    CCalculation.cpp:789-891): raw (H, W) camera frame -> (strip_w,
+    strip_b) float32 offset maps, by the plain composite on the frame's
+    device. ``fbits`` as in :func:`windowed_extrema`."""
+    return windowed_extrema(box_sum_vertical(frame, window), window,
+                            subpixel, fbits)
 
 
 def select_delta_p(strip_w_prev: torch.Tensor, strip_b_prev: torch.Tensor,

@@ -1,5 +1,7 @@
 """Frame-0 absolute decodes (PyTorch port of slc_tpu/pipeline.py).
 
+* :func:`absolute_projector_map` is the Gray + phase decode of the
+  projector map alone, plain PyTorch on any device;
 * :func:`decode_first_frame` is the reference's CalculateFirst
   (CCalculation.cpp:171-206): Gray + phase-shift decode of the absolute
   projector map, then triangulation;
@@ -22,7 +24,8 @@ import torch
 from slc_tpu_torch.calib import TriangulationTables
 from slc_tpu_torch.config import HeterodyneConfig, SystemConfig
 from slc_tpu_torch.kernels.bilateral import bilateral_filter
-from slc_tpu_torch.kernels.grayphase import grayphase_decode
+from slc_tpu_torch.kernels.grayphase import (  # noqa: F401 (re-exported)
+    absolute_projector_map, grayphase_decode)
 from slc_tpu_torch.kernels.heterodyne import heterodyne_decode
 from slc_tpu_torch.ops.phase import decode_phase, modulation
 from slc_tpu_torch.ops.triangulate import triangulate_xyz

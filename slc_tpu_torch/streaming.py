@@ -7,10 +7,11 @@ it with JAX's asynchronous dispatch; on a CUDA card the port does the
 same with streams, events and graphs:
 
   * frame f+1 is copied into a pinned host buffer and sent to the device
-    by a non-blocking copy on a side stream while step f runs on the
-    current stream (:class:`HostStager`, a ring of pinned buffers: a
-    buffer is written again only after its copy has completed); the step
-    waits on its frame's copy event, the host does not;
+    on a side stream while step f runs on the current stream
+    (:class:`HostStager`: both copies are queued on the side stream, the
+    one into pinned memory as a host function that CUDA's callback
+    thread runs, so the caller's thread only enqueues); the step waits on
+    its frame's copy event, the host does not;
   * the default ``fetch`` copies each depth map into pinned host memory
     asynchronously, on the current stream behind its step
     (slc_tpu's ``copy_to_host_async``);
@@ -22,9 +23,8 @@ same with streams, events and graphs:
     a graph owns it (the runner, for one run), and the graph is freed
     with it.
 
-Every copy into pinned memory is made on the caller's thread: the loops
-never wait for the device per frame, so the copy of frame f+1 runs on
-the host while step f runs on the card.
+The loops never wait for the device per frame, so the copy of frame f+1
+runs while the caller's thread launches step f.
 
 On the CPU the same functions are plain loops over
 :func:`slc_tpu_torch.dynamic.dynamic_step`. A CUDA tensor never takes
@@ -47,7 +47,7 @@ launches to the step's wrapper.
 
 from __future__ import annotations
 
-import ctypes
+import collections
 import dataclasses
 import time
 from typing import Callable, Iterable, Iterator, List, Optional, Tuple
@@ -60,6 +60,7 @@ from slc_tpu_torch.config import SystemConfig
 from slc_tpu_torch.dynamic import TrackerState, dynamic_step, step_maps
 from slc_tpu_torch.kernels import _build
 from slc_tpu_torch.kernels import dynamic_step as kstep
+from slc_tpu_torch.kernels import staging as kstaging
 from slc_tpu_torch.pipeline import FrameResult
 
 
@@ -111,34 +112,48 @@ class Staged:
         return self.tensor
 
 
-def _copy_into(host: torch.Tensor, a) -> None:
-    """Copy the array ``a`` into the pinned tensor ``host`` by libc's
-    memmove, which ctypes calls without the GIL (numpy's copy holds the
-    GIL for part of the copy; torch's CPU copy would wake its intra-op
-    threads, whose spinning then takes cores from the frame loader and
-    the cloud writer)."""
-    a = np.ascontiguousarray(a)
-    if a.shape != tuple(host.shape) or \
-            torch.from_numpy(a[:0]).dtype != host.dtype:
-        raise ValueError(f"frame {a.shape} {a.dtype} does not fit the "
-                         f"staging buffer {tuple(host.shape)} {host.dtype}")
-    ctypes.memmove(host.data_ptr(), a.ctypes.data, a.nbytes)
+def _host_parts(frames) -> Tuple[List[np.ndarray], tuple, torch.dtype]:
+    """The C-contiguous host arrays of one frame, or of a list of frames
+    to stack, with the shape and torch type they make; raises if the
+    frames of a list differ in shape or type, or a type has no torch
+    counterpart."""
+    stacked = isinstance(frames, (list, tuple))
+    parts = [np.ascontiguousarray(f)
+             for f in (frames if stacked else [frames])]
+    if not parts:
+        raise ValueError("no frame to stage")
+    first = parts[0]
+    for p in parts[1:]:
+        if p.shape != first.shape or p.dtype != first.dtype:
+            raise ValueError(f"frame {p.shape} {p.dtype} does not stack "
+                             f"with {first.shape} {first.dtype}")
+    dtype = torch.from_numpy(first[:0]).dtype
+    shape = (len(parts),) + first.shape if stacked else first.shape
+    return parts, shape, dtype
 
 
 class HostStager:
-    """Host-to-device copies through a ring of ``slots`` pinned buffers
-    per shape, made on the caller's thread.
+    """Host-to-device copies that cost the caller's thread a few enqueues,
+    as ``jax.device_put`` does.
 
-    :meth:`put` takes a uint8 frame, or a list of frames to stack (K, H,
-    W). It copies it into the next pinned buffer (first waiting for that
-    buffer's previous copy to complete) and issues the non-blocking copy
-    to the device: by default into a fresh tensor, on a side stream of
-    the CUDA ``device``, with an event that :meth:`Staged.wait` hands to
-    the current stream; with ``out`` (a device tensor of that shape, such
-    as a slot of a graph's frame stack) into ``out``, on the current
-    stream, behind the work queued there that still reads it. On the
-    CPU, ``put`` copies the frame into a tensor of its own, or into
-    ``out``."""
+    :meth:`put` takes a host frame, or a list of frames to stack (K, H,
+    W). On a CUDA ``device`` it queues, on the stager's side stream, the
+    copy of the frame into a pinned buffer (a host function on CUDA's
+    callback thread: :func:`slc_tpu_torch.kernels.staging.stage_h2d`)
+    and that buffer's copy to the device, records an event and returns.
+    By default the copy goes into a fresh device tensor, whose
+    :meth:`Staged.wait` makes the current stream wait on the event. With
+    ``out`` (a device tensor of that shape, such as a slot of a graph's
+    frame stack, which queued work may still read) the side stream first
+    waits on the current stream, and the current stream then waits on the
+    copy.
+
+    The pinned buffers are a ring of ``slots`` per shape; stream order on
+    the one side stream keeps a buffer from being written before its last
+    device copy has read it. The stager holds each frame until its copy
+    has completed; the caller's thread waits only when ``slots`` copies
+    are in flight. A failed build or launch raises. On the CPU ``put``
+    copies the frame into a tensor of its own, or into ``out``."""
 
     def __init__(self, device, slots: int = 3):
         if slots < 2:
@@ -146,15 +161,12 @@ class HostStager:
         self.device = torch.device(device)
         self.slots = slots
         self._rings: dict = {}
+        self._live: collections.deque = collections.deque()
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
 
     def put(self, frames, out: Optional[torch.Tensor] = None) -> Staged:
-        parts = list(frames) if isinstance(frames, (list, tuple)) else None
-        first = np.asarray(parts[0] if parts is not None else frames)
-        shape = ((len(parts),) + first.shape if parts is not None
-                 else first.shape)
-        dtype = torch.from_numpy(first[:0]).dtype
+        parts, shape, dtype = _host_parts(frames)
         if out is not None and (tuple(out.shape) != shape
                                 or out.dtype != dtype
                                 or out.device.type != self.device.type):
@@ -162,34 +174,34 @@ class HostStager:
                              f"{out.device} does not take {shape} {dtype} "
                              f"on {self.device}")
         if self._stream is None:
-            t = torch.from_numpy(np.stack(parts) if parts is not None
-                                 else np.array(frames))
+            t = torch.from_numpy(np.stack(parts).reshape(shape))
             return Staged(t if out is None else out.copy_(t))
         ring = self._rings.get((shape, dtype))
         if ring is None:
-            ring = self._rings[(shape, dtype)] = [
-                0, [[torch.empty(shape, dtype=dtype, pin_memory=True), None]
-                    for _ in range(self.slots)]]
-        slot = ring[1][ring[0] % self.slots]
+            ring = self._rings[(shape, dtype)] = [0, [
+                torch.empty(shape, dtype=dtype, pin_memory=True)
+                for _ in range(self.slots)]]
+        host = ring[1][ring[0] % self.slots]
         ring[0] += 1
-        host, done = slot
-        if done is not None:
-            done.synchronize()
-        if parts is None:
-            _copy_into(host, frames)
-        else:
-            for i, p in enumerate(parts):
-                _copy_into(host[i], p)
-        stream = (self._stream if out is None
-                  else torch.cuda.current_stream(out.device))
-        with torch.cuda.stream(stream):
+        # Frames whose copy has completed are let go; with a full ring the
+        # oldest copy is waited for.
+        while self._live and (len(self._live) >= self.slots
+                              or self._live[0][0].query()):
+            self._live.popleft()[0].synchronize()
+        current = torch.cuda.current_stream(self.device)
+        if out is not None:
+            self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
             dev = out if out is not None else torch.empty(
                 shape, dtype=dtype, device=self.device)
-            dev.copy_(host, non_blocking=True)
+            kstaging.stage_h2d(parts, host, dev)
             event = torch.cuda.Event()
-            event.record(stream)
-        slot[1] = event
-        return Staged(dev, event if out is None else None)
+            event.record(self._stream)
+        self._live.append((event, parts))
+        if out is None:
+            return Staged(dev, event)
+        current.wait_event(event)
+        return Staged(out)
 
 
 @dataclasses.dataclass

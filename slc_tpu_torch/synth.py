@@ -13,7 +13,7 @@ per-pixel ground-truth depth and projector correspondence.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -216,15 +216,32 @@ def render_dynamic_sequence(calib: Calibration, cfg: SystemConfig,
 
     Returns (frames (F, H, W) uint8, z_gt (F, H, W), proj_u (F, H, W)).
     """
-    rng = np.random.default_rng(seed) if noise_sigma > 0 else None
     frames = np.empty((num_frames, cfg.cam_h, cfg.cam_w), np.uint8)
     z_gt = np.empty((num_frames, cfg.cam_h, cfg.cam_w))
     pu_gt = np.empty_like(z_gt)
+    for f, (frame, z, pu) in enumerate(iter_dynamic_sequence(
+            calib, cfg, num_frames, z0, dz_per_frame, stripe_period,
+            noise_sigma, seed, surface_for_frame)):
+        frames[f], z_gt[f], pu_gt[f] = frame, z, pu
+    return frames, z_gt, pu_gt
+
+
+def iter_dynamic_sequence(calib: Calibration, cfg: SystemConfig,
+                          num_frames: int,
+                          z0: float = 50.0, dz_per_frame: float = 0.08,
+                          stripe_period: int = 40,
+                          noise_sigma: float = 0.0, seed: int = 0,
+                          surface_for_frame: Optional[
+                              Callable[[int], Surface]] = None
+                          ) -> Iterator[Tuple[np.ndarray, np.ndarray,
+                                              np.ndarray]]:
+    """:func:`render_dynamic_sequence` one frame at a time: yields each
+    frame's (frame uint8, z_gt, proj_u), the same values, so a long
+    sequence at full size need not be held."""
+    rng = np.random.default_rng(seed) if noise_sigma > 0 else None
     for f in range(num_frames):
         surf = (plane_surface(z0 + dz_per_frame * f)
                 if surface_for_frame is None else surface_for_frame(f))
         z, pu = surface_geometry(calib, cfg, surf)
-        frames[f] = _quantize(patterns.stripe_at(pu, stripe_period),
-                              noise_sigma, rng)
-        z_gt[f], pu_gt[f] = z, pu
-    return frames, z_gt, pu_gt
+        yield (_quantize(patterns.stripe_at(pu, stripe_period), noise_sigma,
+                         rng), z, pu)

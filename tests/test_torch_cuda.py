@@ -7,8 +7,9 @@ of chip_smoke.py's chains, the floors at widths 1270-1280; the preview
 render through the bilateral kernel and multi-scan registration on the
 card against the CPU, which has no kernel of its own; K steps as one
 CUDA graph against the steps one by one, bit for bit, directly and
-through the runner's chunk path; and the streaming loop's overlap of
-transfers with steps at 1216x1632, tests/test_streaming_tpu.py's bars).
+through the runner's chunk path; the frame stager's host copies queued
+on its stream; and the streaming loop's overlap of transfers with steps
+at 1216x1632, tests/test_streaming_tpu.py's bars).
 Marked
 ``cuda``: each test skips where there is no card. On the card:
 
@@ -289,6 +290,24 @@ def test_locked_step_windows_and_gate(dev, shape, win_u, win_v, gate):
     _lock_close(got[:1] + got[3:], want[:1] + want[3:])
 
 
+@pytest.mark.parametrize("shape", [(192, 160), (150, 150)])
+@pytest.mark.parametrize("period", [12.0, 12.6, 11.4])
+def test_locked_step_gates_match_plain(dev, shape, period):
+    """The snap launch's per-band gate decisions equal the plain step's:
+    none gated at the true period, every band at a 5% wrong one."""
+    from slc_tpu_torch.ops.demod import GATE_BAND
+    cfg, args = _step_args(shape, dev)
+    n = -(-shape[0] // GATE_BAND)
+    kw = dict(window=cfg.reco_window, fov_min=cfg.fov_min,
+              fov_max=cfg.fov_max, period=period, win_u=21, win_v=9)
+    got, want = (torch.full((n,), -1.0, device=dev) for _ in range(2))
+    out = kstep.dynamic_step_lock_cuda(*args, gates=got, **kw)
+    ref = kstep.dynamic_step_lock_ref(*args, gates=want, **kw)
+    assert got.tolist() == want.tolist()
+    assert got.tolist() == [0.0 if period != 12.0 else 1.0] * n
+    _lock_close(out[:1] + out[3:], ref[:1] + ref[3:])
+
+
 @pytest.mark.parametrize("shape", SHAPES + [(1000, 1270)])
 @pytest.mark.parametrize("window", [5, 21, 63])
 @pytest.mark.parametrize("subpixel,frac_bits", [(True, 0), (False, 0),
@@ -511,6 +530,55 @@ def test_streaming_hides_transfers(dev):
     print("overlap:", best)
     assert best["speedup_vs_sequential"] > 1.1, best
     assert best["overlap_efficiency"] >= 0.5, best
+
+
+def test_stager_keeps_the_frame_until_its_copy(dev):
+    """``put`` returns before the copy runs (here it waits behind ~20 ms
+    of a spinning kernel), so the stager must hold the numpy frame: the
+    frame freed right after ``put`` and its memory written over, the
+    device tensor still holds the frame's values."""
+    import gc
+    from slc_tpu_torch.kernels import staging
+    from slc_tpu_torch.streaming import HostStager
+    rng = np.random.default_rng(5)
+    want = rng.integers(0, 256, (1024, 1280), dtype=np.uint8)
+    stager = HostStager(dev)
+    staging.stage_h2d.launches = 0
+    torch.cuda._sleep(40_000_000)
+    stager._stream.wait_stream(torch.cuda.current_stream(dev))
+    frame = want.copy()
+    staged = stager.put(frame)
+    del frame
+    gc.collect()
+    junk = [np.full((1024, 1280), 255, np.uint8) for _ in range(8)]
+    got = staged.wait().cpu().numpy()
+    assert staging.stage_h2d.launches == 1
+    np.testing.assert_array_equal(got, want)
+    del junk
+
+
+def test_stacked_and_slot_puts_match_per_frame_puts(dev):
+    """A stack staged by one ``put`` of a list, and frames staged one by
+    one into the slots of a device stack (``out``, behind queued work on
+    the current stream), equal the frames staged one at a time, bit for
+    bit, with more puts in flight than the ring has buffers."""
+    from slc_tpu_torch.streaming import HostStager
+    rng = np.random.default_rng(6)
+    frames = [rng.integers(0, 256, (96, 160), dtype=np.uint8)
+              for _ in range(7)]
+    stager = HostStager(dev, slots=2)
+    one = [stager.put(f) for f in frames]
+    stack = stager.put(frames).wait()
+    torch.cuda._sleep(10_000_000)
+    # Queued behind the spin: a put that did not wait for it would be
+    # written over.
+    slots = torch.full((7, 96, 160), 3, dtype=torch.uint8, device=dev)
+    for f, slot in zip(frames, slots):
+        stager.put(f, out=slot)
+    want = torch.from_numpy(np.stack(frames)).to(dev)
+    assert torch.equal(torch.stack([s.wait() for s in one]), want)
+    assert torch.equal(stack, want)
+    assert torch.equal(slots, want)
 
 
 @pytest.mark.parametrize("lock", [None, 12.0])

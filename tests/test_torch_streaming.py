@@ -363,12 +363,33 @@ def test_chunk_must_be_positive(anchored_dataset, tmp_path):
 
 
 def test_staging_copy_checks_the_frame():
-    """The pinned staging copy takes any layout of a frame of the buffer's
-    shape and type, and refuses another."""
-    host = torch.empty((4, 6), dtype=torch.uint8)
+    """The stager takes any layout of a frame (staged C-contiguous), stacks
+    only frames of one shape and type, and refuses an ``out`` of another
+    shape."""
     a = np.arange(24, dtype=np.uint8).reshape(4, 6)
-    streaming._copy_into(host, np.asfortranarray(a))
-    np.testing.assert_array_equal(host.numpy(), a)
+    parts, shape, dtype = streaming._host_parts(np.asfortranarray(a))
+    assert shape == (4, 6) and dtype == torch.uint8
+    assert parts[0].flags.c_contiguous
+    np.testing.assert_array_equal(parts[0], a)
+    stager = streaming.HostStager("cpu")
+    np.testing.assert_array_equal(
+        stager.put(np.asfortranarray(a)).wait().numpy(), a)
     for bad in (a.astype(np.int16), a[:, :5]):
-        with pytest.raises(ValueError, match="does not fit"):
-            streaming._copy_into(host, bad)
+        with pytest.raises(ValueError, match="does not stack"):
+            stager.put([a, bad])
+    with pytest.raises(ValueError, match="no frame"):
+        stager.put([])
+    with pytest.raises(ValueError, match="does not take"):
+        stager.put(a[:, :5], out=torch.zeros((4, 6), dtype=torch.uint8))
+
+
+def test_stager_on_the_cpu_copies_the_frame():
+    """On the CPU a staged frame is a copy: changing the numpy frame after
+    ``put`` changes nothing staged, and no side stream exists."""
+    frame = np.full((4, 6), 7, np.uint8)
+    stager = streaming.HostStager("cpu", slots=2)
+    one, stack = stager.put(frame), stager.put([frame, frame])
+    frame[:] = 0
+    assert stager._stream is None and one.event is None
+    assert int(one.wait().sum()) == 7 * 24
+    assert stack.wait().shape == (2, 4, 6) and int(stack.wait().min()) == 7
