@@ -96,8 +96,7 @@ Run from the root of a checkout. In order it:
      run (a replay counts K) and the locked error bars held; the loop's
      fps with ``--no-clouds`` at ``--chunk`` 1, 8 and 16 on a 65-frame
      dataset, with the host wall per frame of ``slc/dynamic_step`` and of
-     ``slc/dynamic_chunk`` / K and the device's busy share (phase 4's
-     kernels-alone time x frames over the loop's wall); the writer's
+     ``slc/dynamic_chunk`` / K; the writer's
      device-to-host copy per frame, beside a pageable and a pinned copy
      of the same maps timed here; ``streaming.measure_overlap`` at
      1024x1280 (open-loop step, ``compute_repeats="auto"``), printed;
@@ -1092,13 +1091,13 @@ def loop_wall_s(recs, first):
     return sum(1.0 / r["fps"] for r in recs[idx + 1:]), len(recs) - idx - 1
 
 
-def stream_runs(launches, errs, times):
+def stream_runs(launches, errs):
     """Phase 5c: the streaming loop. ``run --chunk 8`` (K steps as one CUDA
     graph replay) on phase 5a's dataset, locked and free, against the
     ``--chunk 1`` runs bit for bit, with exact launch counts; the loop's
     fps with ``--no-clouds`` at ``--chunk`` 1, 8 and 16 on a 65-frame
-    dataset, the host wall per frame of a step and of a chunk, and the
-    device's busy share; the writer's device-to-host copy per frame beside
+    dataset and the host wall per frame of a step and of a chunk; the
+    writer's device-to-host copy per frame beside
     a pageable copy of the same maps; and ``measure_overlap`` at
     1024x1280 (open-loop step, ``compute_repeats="auto"``)."""
     cfg = REFERENCE_CONFIG
@@ -1149,7 +1148,6 @@ def stream_runs(launches, errs, times):
     save_calibration(os.path.join(loop_ds, "parameters.yml"), calib)
     log(f"e2e loop: rendered and wrote {N_LOOP_FRAMES} frames in "
         f"{time.perf_counter() - t0:.1f} s")
-    kernel_ms = times["dynamic_step_lock"][2]
     card = card_line()
     for k in (1, 8, 16):
         out = os.path.join(WORK, f"loop{k}")
@@ -1173,9 +1171,7 @@ def stream_runs(launches, errs, times):
             f"{n / wall:.2f} over frames 17-{N_LOOP_FRAMES - 1} ({n} "
             f"frames, {1e3 * wall / n:.4f} ms a frame); host wall of "
             f"{'slc/dynamic_step' if k == 1 else 'slc/dynamic_chunk / K'} "
-            f"per frame, median {statistics.median(per):.4f} ms; kernels "
-            f"alone {kernel_ms:.4f} ms a frame (phase 4), so the device is "
-            f"busy {kernel_ms * n / (1e3 * wall):.1%} of the loop")
+            f"per frame, median {statistics.median(per):.4f} ms")
 
     paths = [os.path.join(loop_ds, "cFrame", f"dynaCam{i}.bmp")
              for i in range(1, N_LOOP_FRAMES)]
@@ -2276,7 +2272,7 @@ def main(argv=None) -> int:
             launches[k] += v
         del inputs
         run_errs = gray_runs(launches)
-        stream_runs(launches, run_errs, times)
+        stream_runs(launches, run_errs)
         capture_and_golden(launches)
         fringe_runs(dev, launches, level_ms)
         fusion_phase()

@@ -28,6 +28,8 @@ from typing import Optional
 
 import torch
 
+from slc_tpu_torch import metrics
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_DIR, "csrc")
 _BUILD = os.path.join(_DIR, "build")
@@ -79,8 +81,8 @@ _SIGNATURES = {
     "slc_mg_down": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _f, _vp],
     # e, r, wy, wx, dinv, out, h, w, omega, stream
     "slc_mg_up": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _f, _vp],
-    # src (host void*[n]), n, part_bytes, pinned, dev, stream
-    "slc_stage_h2d": [_vp, _i, ctypes.c_size_t, _vp, _vp, _vp],
+    # src (host void*[n]), n, part_bytes, pinned, dev, timed, stream
+    "slc_stage_h2d": [_vp, _i, ctypes.c_size_t, _vp, _vp, _i, _vp],
 }
 
 _lock = threading.Lock()
@@ -174,6 +176,8 @@ def load(path: str) -> ctypes.CDLL:
     l.slc_error_string.restype = ctypes.c_char_p
     l.slc_dynamic_step_lock_scratch.argtypes = [_i, _i, _i]
     l.slc_dynamic_step_lock_scratch.restype = ctypes.c_long
+    l.slc_stage_stats.argtypes = [_vp, _i]
+    l.slc_stage_stats.restype = None
     return l
 
 
@@ -186,13 +190,33 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
+#: ``slc_stage_stats``'s values in its order: jobs timed, the sum and the
+#: max of their start delays and the sum of their copies into pinned
+#: memory, in ns.
+STAGE_STATS = ("stage.jobs", "stage.fn_delay_ns", "stage.fn_delay_max_ns",
+               "stage.copy_ns")
+
+
+def stage_stats(reset: bool = False):
+    """The frame stager's host-function timings, by the names of
+    :data:`STAGE_STATS`, read and with ``reset`` zeroed; None where the
+    library is not loaded (it is not built for this)."""
+    if _lib is None:
+        return None
+    out = (ctypes.c_longlong * 4)()
+    _lib.slc_stage_stats(out, int(reset))
+    return dict(zip(STAGE_STATS, out))
+
+
 def launch(name: str, device, *args) -> None:
     """Call the C entry point ``name`` with ``args`` and the current
     stream of the CUDA ``device`` (the tensors' device), under
-    ``torch.cuda.device(device)``; raise if it returned an error."""
-    fn = getattr(lib(), name)
-    with torch.cuda.device(device):
-        err = fn(*args, stream_of(device))
+    ``torch.cuda.device(device)``; raise if it returned an error. The
+    host time of the call is the span ``kernel.launch``."""
+    with metrics.span("kernel.launch"):
+        fn = getattr(lib(), name)
+        with torch.cuda.device(device):
+            err = fn(*args, stream_of(device))
     check(err, name)
 
 

@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from slc_tpu_torch import metrics
 from slc_tpu_torch.calib import TriangulationTables
 from slc_tpu_torch.kernels import _build
 from slc_tpu_torch.kernels.stripe import check_window, fast_frac_bits
@@ -167,13 +168,15 @@ def dynamic_step_open_cuda(frame: torch.Tensor, prev_sw: torch.Tensor,
     """The hand-written open-loop kernel (one launch). Inputs: u8 frame
     and float32 carried maps, contiguous (H, W) on one CUDA device.
     ``out``: six maps to write instead of fresh ones (a CUDA graph's
-    static buffers), none overlapping an input."""
-    dev, h, w = _check_inputs(frame, prev_sw, prev_sb, prev_pu, tables,
-                              window, frac_bits)
-    fbits = fast_frac_bits(frac_bits, window, w, subpixel)
-    pu, sw, sb, z, x, y = out = _out_maps(
-        out, (frame, prev_sw, prev_sb, prev_pu), h, w, dev)
-    tri = _build.tri_array(tables.coeffs, fov_min, fov_max)
+    static buffers), none overlapping an input. The host work before
+    the launch is the span ``kernel.prep``."""
+    with metrics.span("kernel.prep"):
+        dev, h, w = _check_inputs(frame, prev_sw, prev_sb, prev_pu, tables,
+                                  window, frac_bits)
+        fbits = fast_frac_bits(frac_bits, window, w, subpixel)
+        pu, sw, sb, z, x, y = out = _out_maps(
+            out, (frame, prev_sw, prev_sb, prev_pu), h, w, dev)
+        tri = _build.tri_array(tables.coeffs, fov_min, fov_max)
     _build.launch(
         "slc_dynamic_step", dev, frame.data_ptr(), prev_sw.data_ptr(),
         prev_sb.data_ptr(), prev_pu.data_ptr(), pu.data_ptr(), sw.data_ptr(),
@@ -252,21 +255,23 @@ def dynamic_step_lock_cuda(frame: torch.Tensor, prev_sw: torch.Tensor,
     after ``lock_corr`` (C and S with the correction map and the gate
     partials), so that device timing splits the step by stage
     (slc_tpu/pallas/dynamic_lock.py:316-319). ``out`` as for
-    :func:`dynamic_step_open_cuda`."""
+    :func:`dynamic_step_open_cuda`. The host work before the launch is
+    the span ``kernel.prep``."""
     if ablate not in _ABLATE:
         raise ValueError(f"ablate must be one of {sorted(_ABLATE)}, got "
                          f"{ablate!r}")
-    dev, h, w = _check_inputs(frame, prev_sw, prev_sb, prev_pu, tables,
-                              window, frac_bits)
-    check_lock_args(period, win_u, win_v)
-    fbits = fast_frac_bits(frac_bits, window, w + 2 * win_u, subpixel)
-    pu, sw, sb, z, x, y = out = _out_maps(
-        out, (frame, prev_sw, prev_sb, prev_pu), h, w, dev)
-    n_bands = -(-h // GATE_BAND)
-    if gates is not None:
-        _build.require(gates, "gates", torch.float32, (n_bands,), dev)
-    scratch, wu, wv = lock_buffers(h, w, win_u, win_v, dev)
-    tri = _build.tri_array(tables.coeffs, fov_min, fov_max)
+    with metrics.span("kernel.prep"):
+        dev, h, w = _check_inputs(frame, prev_sw, prev_sb, prev_pu, tables,
+                                  window, frac_bits)
+        check_lock_args(period, win_u, win_v)
+        fbits = fast_frac_bits(frac_bits, window, w + 2 * win_u, subpixel)
+        pu, sw, sb, z, x, y = out = _out_maps(
+            out, (frame, prev_sw, prev_sb, prev_pu), h, w, dev)
+        n_bands = -(-h // GATE_BAND)
+        if gates is not None:
+            _build.require(gates, "gates", torch.float32, (n_bands,), dev)
+        scratch, wu, wv = lock_buffers(h, w, win_u, win_v, dev)
+        tri = _build.tri_array(tables.coeffs, fov_min, fov_max)
     _build.launch(
         "slc_dynamic_step_lock", dev, frame.data_ptr(), prev_sw.data_ptr(),
         prev_sb.data_ptr(), prev_pu.data_ptr(), pu.data_ptr(), sw.data_ptr(),

@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from slc_tpu_torch import metrics
 from slc_tpu_torch.calib import TriangulationTables
 from slc_tpu_torch.config import SystemConfig
 from slc_tpu_torch.kernels import _build
@@ -63,7 +64,8 @@ def grayphase_decode_cuda(gray_images: torch.Tensor,
                           tables: TriangulationTables, cfg: SystemConfig,
                           min_modulation: Optional[float] = None) -> Maps:
     """The hand-written kernel. ``gray_images`` (2B, H, W) and
-    ``phase_images`` (N, H, W): contiguous u8 on one CUDA device."""
+    ``phase_images`` (N, H, W): contiguous u8 on one CUDA device. The
+    host work before the launch is the span ``kernel.prep``."""
     if cfg.phase_steps < 3:
         # With n < 3 every sine coefficient vanishes; 3 is also the
         # minimum for phase shifting (grayphase.py:167-171).
@@ -72,16 +74,17 @@ def grayphase_decode_cuda(gray_images: torch.Tensor,
     h, w = cfg.cam_h, cfg.cam_w
     if h < 1 or w < 1:
         raise ValueError(f"empty image {h}x{w}")
-    _build.require(gray_images, "gray_images", torch.uint8,
-                   (2 * cfg.gray_bits, h, w), dev)
-    _build.require(phase_images, "phase_images", torch.uint8,
-                   (cfg.phase_steps, h, w), dev)
-    _build.require(tables.c, "tables.c", torch.float32, (h, w), dev)
-    x, y, z, pu = (torch.empty((h, w), dtype=torch.float32, device=dev)
-                   for _ in range(4))
-    use_mod = min_modulation is not None
-    min_mod_sq = float(min_modulation) ** 2 if use_mod else 0.0
-    tri = _build.tri_array(tables.coeffs, cfg.fov_min, cfg.fov_max)
+    with metrics.span("kernel.prep"):
+        _build.require(gray_images, "gray_images", torch.uint8,
+                       (2 * cfg.gray_bits, h, w), dev)
+        _build.require(phase_images, "phase_images", torch.uint8,
+                       (cfg.phase_steps, h, w), dev)
+        _build.require(tables.c, "tables.c", torch.float32, (h, w), dev)
+        x, y, z, pu = (torch.empty((h, w), dtype=torch.float32, device=dev)
+                       for _ in range(4))
+        use_mod = min_modulation is not None
+        min_mod_sq = float(min_modulation) ** 2 if use_mod else 0.0
+        tri = _build.tri_array(tables.coeffs, cfg.fov_min, cfg.fov_max)
     _build.launch(
         "slc_grayphase", dev, gray_images.data_ptr(),
         phase_images.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),

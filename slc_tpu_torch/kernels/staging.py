@@ -10,6 +10,11 @@ is the caller's thread, which only enqueues. The stream owns the order:
 the caller keeps the host parts alive until an event recorded after the
 call has completed (:class:`slc_tpu_torch.streaming.HostStager` does).
 
+While the program's spans record (a profiler runs, see
+:mod:`slc_tpu_torch.metrics`), a call is timed: the host function
+measures its start delay and its memcpy (``stage.*`` in
+``metrics.counters()``).
+
 There is no plain version: on the CPU a frame is a tensor already, and
 the stager takes a CPU tensor's path without calling this.
 """
@@ -22,6 +27,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from slc_tpu_torch import metrics
 from slc_tpu_torch.kernels import _build
 
 
@@ -51,8 +57,9 @@ def stage_h2d(parts: Sequence[np.ndarray], pinned: torch.Tensor,
             raise ValueError(f"stage_h2d: {name} must be contiguous and "
                              f"hold {total} bytes")
     src = (ctypes.c_void_p * len(parts))(*(p.ctypes.data for p in parts))
+    timed = metrics.recording()
     _build.launch("slc_stage_h2d", dev.device, src, len(parts), part_bytes,
-                  pinned.data_ptr(), dev.data_ptr())
+                  pinned.data_ptr(), dev.data_ptr(), int(timed))
     stage_h2d.launches += 1
 
 

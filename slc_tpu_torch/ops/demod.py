@@ -26,6 +26,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from slc_tpu_torch import metrics
+
 #: Row-band height of the carrier-consistency gate (slc_tpu/ops/demod.py:
 #: 67-73). Bands align to global row 0; the CUDA kernel takes its band
 #: height from here.
@@ -172,7 +174,16 @@ def estimate_period(frame: torch.Tensor, proj_u: torch.Tensor,
     m = 2*pi*(1/T_true - 1/T_nom) per projector px, estimated by
     amplitude-gated least squares of column gradients; ``iters=2``
     re-demodulates at the first estimate. Valid to ~+-10% initial
-    error. Returns a float32 scalar tensor."""
+    error. Returns a float32 scalar tensor. Its host time (the enqueue on
+    the card; the caller's read of the scalar waits) is the span
+    ``setup.period``."""
+    with metrics.span("setup.period"):
+        return _estimate_period(frame, proj_u, period_nominal, win_u, win_v,
+                                amp_floor, iters)
+
+
+def _estimate_period(frame, proj_u, period_nominal, win_u, win_v,
+                     amp_floor, iters):
     h, w = frame.shape
     f = frame.float()
     pu = proj_u.float()
@@ -206,12 +217,14 @@ def suggest_lock_window(proj_u0: np.ndarray, period: float,
                         max_window: int = 64) -> int:
     """Lock-in triangle half-width (camera px) from the frame-0 absolute
     map: T / median(dP/du) times ``periods_per_window``, odd, in
-    [3, max_window] (slc_tpu/ops/demod.py:297-314). Host numpy."""
-    pu = np.asarray(proj_u0, np.float64)
-    g = 0.5 * (np.roll(pu, -1, axis=1) - np.roll(pu, 1, axis=1))
-    g = g[1:-1, 1:-1]
-    valid = (pu[1:-1, 1:-1] > 0) & (np.abs(g) > 1e-3)
-    med = float(np.median(np.abs(g[valid]))) if valid.any() else 1.0
+    [3, max_window] (slc_tpu/ops/demod.py:297-314). Host numpy; its
+    time is the span ``setup.lock_window``."""
+    with metrics.span("setup.lock_window"):
+        pu = np.asarray(proj_u0, np.float64)
+        g = 0.5 * (np.roll(pu, -1, axis=1) - np.roll(pu, 1, axis=1))
+        g = g[1:-1, 1:-1]
+        valid = (pu[1:-1, 1:-1] > 0) & (np.abs(g) > 1e-3)
+        med = float(np.median(np.abs(g[valid]))) if valid.any() else 1.0
     win = int(round(periods_per_window * period / max(med, 1e-3)))
     win = int(np.clip(win, 3, max_window))
     return win if win % 2 else win - 1            # odd, bounded

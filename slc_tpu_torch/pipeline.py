@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from slc_tpu_torch import metrics
 from slc_tpu_torch.calib import TriangulationTables
 from slc_tpu_torch.config import HeterodyneConfig, SystemConfig
 from slc_tpu_torch.kernels.bilateral import bilateral_filter
@@ -50,10 +51,12 @@ def decode_first_frame(gray_images: torch.Tensor,
     """Frame-0 absolute decode + triangulation. ``min_modulation``
     optionally masks pixels of low fringe modulation; masked pixels get
     P == 0 as well as z == 0, so they read as holes downstream
-    (slc_tpu/pipeline.py:94-96)."""
-    x, y, z, proj_u = grayphase_decode(gray_images, phase_images, tables,
-                                       cfg, min_modulation)
-    return FrameResult(x=x, y=y, z=z, proj_u=proj_u)
+    (slc_tpu/pipeline.py:94-96). Its host time is the span
+    ``decode.first``."""
+    with metrics.span("decode.first"):
+        x, y, z, proj_u = grayphase_decode(gray_images, phase_images,
+                                           tables, cfg, min_modulation)
+        return FrameResult(x=x, y=y, z=z, proj_u=proj_u)
 
 
 def decode_heterodyne_frame(fringe_images: torch.Tensor,
@@ -65,10 +68,11 @@ def decode_heterodyne_frame(fringe_images: torch.Tensor,
     (slc_tpu/pipeline.py:102-154): ``het.num_images`` fringe images,
     finest frequency first, no Gray codes. Pixels whose smallest
     modulation over the frequencies is not above ``min_modulation`` are
-    holes (P == 0, z == 0)."""
-    x, y, z, proj_u = heterodyne_decode(fringe_images, tables, cfg, het,
-                                        min_modulation)
-    return FrameResult(x=x, y=y, z=z, proj_u=proj_u)
+    holes (P == 0, z == 0). Its host time is the span ``decode.first``."""
+    with metrics.span("decode.first"):
+        x, y, z, proj_u = heterodyne_decode(fringe_images, tables, cfg, het,
+                                            min_modulation)
+        return FrameResult(x=x, y=y, z=z, proj_u=proj_u)
 
 
 def decode_spatial_frame(fringe_images: torch.Tensor,

@@ -55,6 +55,7 @@ from typing import Callable, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from slc_tpu_torch import metrics
 from slc_tpu_torch.calib import TriangulationTables
 from slc_tpu_torch.config import SystemConfig
 from slc_tpu_torch.dynamic import TrackerState, dynamic_step, step_maps
@@ -91,13 +92,16 @@ class StreamStats:
 
 class Staged:
     """A host frame (or stack of frames) on its way to the device: the
-    device tensor, and the event of its copy where that copy runs on
-    another stream than the one that reads it."""
+    device tensor, the event of its copy where that copy runs on another
+    stream than the one that reads it, and the stager's ordinal of the
+    ``put`` that made it (the ``frame`` of its ``stream.put`` span)."""
 
     def __init__(self, tensor: torch.Tensor,
-                 event: "Optional[torch.cuda.Event]" = None):
+                 event: "Optional[torch.cuda.Event]" = None,
+                 frame: int = 0):
         self.tensor = tensor
         self.event = event
+        self.frame = frame
 
     def wait(self) -> torch.Tensor:
         """The device tensor, usable on the current stream: makes the
@@ -153,7 +157,13 @@ class HostStager:
     device copy has read it. The stager holds each frame until its copy
     has completed; the caller's thread waits only when ``slots`` copies
     are in flight. A failed build or launch raises. On the CPU ``put``
-    copies the frame into a tensor of its own, or into ``out``."""
+    copies the frame into a tensor of its own, or into ``out``.
+
+    Spans (:mod:`slc_tpu_torch.metrics`): ``stream.put``, each call whole,
+    its ``frame`` the put's ordinal; ``stream.ring_wait``, the wait for
+    copies to complete inside it. On the CPU the copy runs inside ``put``
+    and counts as a staging job (``stage.jobs``, ``stage.copy_ns``) with
+    no start delay."""
 
     def __init__(self, device, slots: int = 3):
         if slots < 2:
@@ -161,11 +171,18 @@ class HostStager:
         self.device = torch.device(device)
         self.slots = slots
         self._rings: dict = {}
+        self._puts = 0
         self._live: collections.deque = collections.deque()
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
 
     def put(self, frames, out: Optional[torch.Tensor] = None) -> Staged:
+        self._puts += 1
+        with metrics.span("stream.put", frame=self._puts):
+            return self._put(frames, out, self._puts)
+
+    def _put(self, frames, out: Optional[torch.Tensor],
+             ordinal: int) -> Staged:
         parts, shape, dtype = _host_parts(frames)
         if out is not None and (tuple(out.shape) != shape
                                 or out.dtype != dtype
@@ -174,8 +191,16 @@ class HostStager:
                              f"{out.device} does not take {shape} {dtype} "
                              f"on {self.device}")
         if self._stream is None:
+            timed = metrics.recording()
+            t0 = time.perf_counter_ns() if timed else 0
             t = torch.from_numpy(np.stack(parts).reshape(shape))
-            return Staged(t if out is None else out.copy_(t))
+            t = t if out is None else out.copy_(t)
+            if timed:
+                # The staging copy runs here, inside the call: a job with
+                # no start delay.
+                metrics.count("stage.jobs")
+                metrics.count("stage.copy_ns", time.perf_counter_ns() - t0)
+            return Staged(t, frame=ordinal)
         ring = self._rings.get((shape, dtype))
         if ring is None:
             ring = self._rings[(shape, dtype)] = [0, [
@@ -185,9 +210,10 @@ class HostStager:
         ring[0] += 1
         # Frames whose copy has completed are let go; with a full ring the
         # oldest copy is waited for.
-        while self._live and (len(self._live) >= self.slots
-                              or self._live[0][0].query()):
-            self._live.popleft()[0].synchronize()
+        with metrics.span("stream.ring_wait"):
+            while self._live and (len(self._live) >= self.slots
+                                  or self._live[0][0].query()):
+                self._live.popleft()[0].synchronize()
         current = torch.cuda.current_stream(self.device)
         if out is not None:
             self._stream.wait_stream(current)
@@ -199,9 +225,9 @@ class HostStager:
             event.record(self._stream)
         self._live.append((event, parts))
         if out is None:
-            return Staged(dev, event)
+            return Staged(dev, event, ordinal)
         current.wait_event(event)
-        return Staged(out)
+        return Staged(out, frame=ordinal)
 
 
 @dataclasses.dataclass
@@ -215,22 +241,26 @@ class Fetched:
 
     @property
     def z(self) -> torch.Tensor:
-        self.ready.synchronize()
+        """z on the host, waited for (the span ``stream.fetch_wait``)."""
+        with metrics.span("stream.fetch_wait"):
+            self.ready.synchronize()
         return self.z_host
 
 
 def fetch_z_async(res: FrameResult):
     """The default ``fetch`` of :func:`stream_frames`: on the card, start
     the copy of z into pinned host memory on the current stream and
-    return a :class:`Fetched`; on the CPU, the result itself."""
-    z = res.z
-    if z.device.type == "cpu":
-        return res
-    host = torch.empty(z.shape, dtype=z.dtype, pin_memory=True)
-    host.copy_(z, non_blocking=True)
-    ready = torch.cuda.Event()
-    ready.record(torch.cuda.current_stream(z.device))
-    return Fetched(res, host, ready)
+    return a :class:`Fetched`; on the CPU, the result itself. Its host
+    time is the span ``stream.fetch``."""
+    with metrics.span("stream.fetch"):
+        z = res.z
+        if z.device.type == "cpu":
+            return res
+        host = torch.empty(z.shape, dtype=z.dtype, pin_memory=True)
+        host.copy_(z, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(z.device))
+        return Fetched(res, host, ready)
 
 
 def stream_frames(state: TrackerState, frames: Iterable[np.ndarray],

@@ -8,7 +8,8 @@ render through the bilateral kernel and multi-scan registration on the
 card against the CPU, which has no kernel of its own; K steps as one
 CUDA graph against the steps one by one, bit for bit, directly and
 through the runner's chunk path; the frame stager's host copies queued
-on its stream; and the streaming loop's overlap of transfers with steps
+on its stream, and timed under a profiler with no device record of the
+program's spans; and the streaming loop's overlap of transfers with steps
 at 1216x1632, tests/test_streaming_tpu.py's bars).
 Marked
 ``cuda``: each test skips where there is no card. On the card:
@@ -579,6 +580,42 @@ def test_stacked_and_slot_puts_match_per_frame_puts(dev):
     assert torch.equal(torch.stack([s.wait() for s in one]), want)
     assert torch.equal(stack, want)
     assert torch.equal(slots, want)
+
+
+def test_spans_time_the_stager_with_no_device_mirror(dev):
+    """Under a profiler of the CPU and the card, a put's staging host
+    function is timed (a job a put, its memcpy above 0), the program's
+    spans are CPU records only (none named ``slc.*`` on the device), and
+    the staged frames are right; without a profiler a put times
+    nothing."""
+    from slc_tpu_torch import metrics
+    from slc_tpu_torch.streaming import HostStager
+    rng = np.random.default_rng(7)
+    frames = [rng.integers(0, 256, (1024, 1280), dtype=np.uint8)
+              for _ in range(5)]
+    stager = HostStager(dev)
+    stager.put(frames[0]).wait()                # builds the library
+    torch.cuda.synchronize(dev)
+    metrics.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        got = [stager.put(f).wait() for f in frames]
+        torch.cuda.synchronize(dev)
+    c = metrics.counters()
+    assert c["stage.jobs"] == 5 and c["stage.copy_ns"] > 0
+    assert 0 <= c["stage.fn_delay_max_ns"] <= c["stage.fn_delay_ns"]
+    assert metrics.span_totals()["stream.put"]["calls"] == 5
+    ours = [e for e in prof.profiler.kineto_results.events()
+            if e.name().startswith("slc.")]
+    assert ours and all(e.device_type() == torch.autograd.DeviceType.CPU
+                        for e in ours)
+    for f, g in zip(frames, got):
+        np.testing.assert_array_equal(g.cpu().numpy(), f)
+    metrics.reset()
+    stager.put(frames[0]).wait()
+    torch.cuda.synchronize(dev)
+    assert metrics.counters() == {} and metrics.span_totals() == {}
 
 
 @pytest.mark.parametrize("lock", [None, 12.0])

@@ -82,8 +82,8 @@ def test_kernel_decoders_reject_degenerate_steps():
 
 def test_device_trace_writes_a_trace(tmp_path):
     """On the CPU the trace holds the block's CPU activity, the stage
-    annotations by name; on a CUDA device without a card it raises and
-    writes nothing."""
+    annotations by name (the span ``slc.stage.<stage>``); on a CUDA
+    device without a card it raises and writes nothing."""
     log_dir = str(tmp_path / "trace")
     with device_trace(log_dir, device="cpu"):
         with stage("slc/traced"):
@@ -92,7 +92,7 @@ def test_device_trace_writes_a_trace(tmp_path):
     assert len(files) == 1
     with open(files[0]) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert "slc/traced" in names
+    assert "slc.stage.traced" in names
     if not torch.cuda.is_available():
         empty = str(tmp_path / "none")
         with pytest.raises(RuntimeError):
