@@ -7,8 +7,9 @@ the device-timing path, and the replay paths end to end.
 Run from the root of a checkout. In order it:
 
 1. requires CUDA and prints the card (``nvidia-smi``), torch and CUDA;
-2. builds the ten CUDA kernels and the frame stager's staging entry
-   (``csrc/staging.cu``, no TPU counterpart) from
+2. builds the ten CUDA kernels, the lock window's median
+   (``csrc/lock_window.cu``) and the frame stager's staging entry
+   (``csrc/staging.cu``; these two have no TPU counterpart) from
    ``slc_tpu_torch/kernels/csrc`` into one library (one nvcc per source,
    all started together), and the
    native host I/O library from ``slc_tpu_torch/io/native/slc_io.cpp``
@@ -23,8 +24,12 @@ Run from the root of a checkout. In order it:
    steps and at HET_GENERIC's 3 x 5 (the kernel's generic instance); the
    stripe and step kernels also in fast sub-pixel mode (``frac_bits=7``)
    against the quantizing plain versions; the access-pattern floors
-   exactly; and the two-kernel locked step (open-loop step, then the
-   standalone lock on its P) bit for bit against the fused one;
+   exactly; the two-kernel locked step (open-loop step, then the
+   standalone lock on its P) bit for bit against the fused one; and the
+   lock window's kernel on the decoded frame-0 map and on the true map
+   in float32: its n and two middle values of |dP/du| equal to the plain
+   numpy version's, and ``suggest_lock_window``'s window from the card
+   equal to the host path's;
 4. drives the device-timing path (``slc_tpu_torch.devtime``) at
    1024x1280, with the launch counts set to 0 just before and checked
    just after: each kernel and its plain version as the device time of
@@ -45,8 +50,11 @@ Run from the root of a checkout. In order it:
    ``torch.profiler`` records CUDA kernels
    (CUPTI tracing may be denied), also the plain versions' kernels alone
    and the locked step by launch, from its records; where it does not,
-   those lines say "not measured". Then one roofline line per kernel
-   from its kernels-alone time:
+   those lines say "not measured". The lock window's kernel on the
+   decoded frame-0 map: its call and its launches alone, and
+   ``suggest_lock_window`` by the host clock from a card tensor, a
+   float32 host map and a CPU tensor (numpy), in turns. Then one
+   roofline line per kernel from its kernels-alone time:
    device ms, bytes per pixel, GB/s, % of the card's HBM peak and, for
    stripe and bilateral, % of the measured floor of their access
    pattern; and its bound, the larger of its bytes over the memory rate
@@ -191,6 +199,7 @@ from slc_tpu_torch.kernels import dynamic_step as kstep
 from slc_tpu_torch.kernels import floors as kfl
 from slc_tpu_torch.kernels import grayphase as kgray
 from slc_tpu_torch.kernels import heterodyne as khet
+from slc_tpu_torch.kernels import lock_window as klw
 from slc_tpu_torch.kernels import mgsmooth as kmg
 from slc_tpu_torch.kernels import phaselock as kpl
 from slc_tpu_torch.kernels import staging as kstaging
@@ -269,6 +278,8 @@ BARS = {
 LOCK_OUT = ("proj_u", "z", "x", "y")
 #: Device timing: calls per timed function (devtime's defaults).
 TIME_N, TIME_WARMUP = 20, 3
+#: suggest_lock_window's host-clock timing: calls per route per turn.
+LOCK_ROUTE_CALLS = 5
 #: Input sets of the cold step timings: a frame, three carried maps and
 #: six outputs each, ~291 MB in all at 1024x1280.
 COLD_SETS = 6
@@ -456,6 +467,8 @@ def parity(dev, errs, inputs):
                     kgray.grayphase_decode_cuda(g, p, tables, cfg, min_mod),
                     kgray.grayphase_decode_ref(g, p, tables, cfg, min_mod),
                     ("x", "y", "z", "proj_u"), errs)
+        decoded = kgray.grayphase_decode_cuda(g, p, tables, cfg)[3]
+        lock_window_parity(decoded, errs, "decoded frame 0")
 
         frames, z_gt, pu_gt = synth.render_dynamic_sequence(
             calib, cfg, 2, z0=50.0, dz_per_frame=0.3,
@@ -482,6 +495,7 @@ def parity(dev, errs, inputs):
         sw0, sb0 = kstripe.stripe_regression_ref(f0, cfg.reco_window, True)
         win = suggest_lock_window(pu_gt[0], LOCK_T)
         log(f"  suggested lock window {win}")
+        lock_window_parity(pu0, errs, "true map, float32")
         args = (f1, sw0, sb0, pu0, tables)
         for ref, frac in ((False, 0), (True, 0), (False, 7)):
             kw = dict(window=cfg.reco_window, subpixel=not ref,
@@ -565,7 +579,28 @@ def parity(dev, errs, inputs):
         if (h, w) == SHAPES[0]:
             inputs.update(g=g, p=p, tables=tables, cfg=cfg, frame=f1,
                           step_args=args, win=win, fringes=fr, depth=depth,
-                          level=levels[(h, w)], levels=levels, pred=pred)
+                          level=levels[(h, w)], levels=levels, pred=pred,
+                          lock_pu=decoded)
+
+
+def lock_window_parity(pu, errs, what):
+    """The lock window's kernel on the card map ``pu`` against its plain
+    version: n and the two middle values exactly, and the window that
+    ``suggest_lock_window`` takes from them equal to the host path's (the
+    same map as a CPU tensor, through numpy)."""
+    got = klw.middle_abs_gradients(pu)
+    host = pu.cpu()
+    want = klw.middle_abs_gradients_ref(host.numpy())
+    require(got == want, f"lock window, {what}: kernel (n, lo, hi) {got} "
+                         f"!= plain {want}")
+    win, host_win = (suggest_lock_window(x, LOCK_T) for x in (pu, host))
+    require(win == host_win, f"lock window, {what}: {win} on the card, "
+                             f"{host_win} on the host")
+    errs["lock_window"] = max(errs.get("lock_window", 0.0),
+                              abs(got[1] - want[1]), abs(got[2] - want[2]))
+    log(f"  lock window, {what}: n {got[0]}, middle |g| {got[1]!r}, "
+        f"{got[2]!r} (kernel == plain, exact); window {win} on the card "
+        f"== {host_win} on the host")
 
 
 def timing(inputs, card, use_profiler=True):
@@ -848,6 +883,51 @@ def timing(inputs, card, use_profiler=True):
             bounds[name] = (None, None)
             line += "; bound not known for this card"
         log(line)
+
+    # The lock window's median (port-only, csrc/lock_window.cu) on the
+    # decoded frame-0 map: the kernel's call and its launches alone on the
+    # device; then suggest_lock_window's routes by the host clock, in
+    # turns: a card tensor, a float32 host map (uploaded first, as the
+    # benchmark's harness hands it over) and a CPU tensor (numpy, the
+    # host path). Its plain time is the numpy route's; its bound one read
+    # of the map from memory.
+    pu = inputs["lock_pu"]
+    host = pu.cpu()
+    kern = lambda: klw.middle_abs_gradients_cuda(pu)  # noqa: E731
+    t_k = [dev_ms(kern, "lock_window") for _ in range(2)]
+    k_dev = alone_ms(kern, "lock_window")
+    routes = {"card tensor": pu, "float32 host map": host.numpy(),
+              "CPU tensor (numpy)": host}
+    host_ms = {k: [] for k in routes}
+    for r in range(4):
+        for k in (list(routes) if r % 2 == 0 else list(routes)[::-1]):
+            for _ in range(LOCK_ROUTE_CALLS):
+                t0 = time.perf_counter()
+                suggest_lock_window(routes[k], LOCK_T)
+                host_ms[k].append(1e3 * (time.perf_counter() - t0))
+            if k != "CPU tensor (numpy)":
+                expect["lock_window"] += LOCK_ROUTE_CALLS
+    med = {k: statistics.median(v) for k, v in host_ms.items()}
+    out["lock_window"] = ((t_k[0] + t_k[1]) / 2, med["CPU tensor (numpy)"],
+                          k_dev, None)
+    log(f"time lock_window at 1024x1280: call kernel "
+        f"{(t_k[0] + t_k[1]) / 2:.4f} ms ({t_k[0]:.4f}, {t_k[1]:.4f}); "
+        f"kernels alone {k_dev:.4f} ms (graph)")
+    log(f"time suggest_lock_window at 1024x1280 on {card}, host clock, "
+        f"median of {4 * LOCK_ROUTE_CALLS} calls in turns: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in med.items()))
+    gbs = 4 * px / (k_dev * 1e-3) / 1e9
+    line = (f"roofline lock_window: {k_dev:.4f} ms, 4 B/px (one read of "
+            f"the map; its passes after the first read it from L2), "
+            f"{gbs:.1f} GB/s")
+    if peak:
+        bounds["lock_window"] = (1e3 * 4 * px / (peak * 1e9), "bytes")
+        line += (f", {100.0 * gbs / peak:.1f}% of HBM peak; bound "
+                 f"{bounds['lock_window'][0]:.4f} ms by bytes")
+    else:
+        bounds["lock_window"] = (None, None)
+        line += "; bound not known for this card"
+    log(line)
     return out, expect, bounds, library, level_ms
 
 
@@ -861,7 +941,8 @@ WRAPPERS = {"grayphase": kgray.grayphase_decode_cuda,
             "mg_down": kmg.mg_down_cuda,
             "mg_up": kmg.mg_up_cuda,
             "phase_lock": kpl.phase_lock_cuda,
-            "halo_block_floor": kfl.halo_block_floor_cuda}
+            "halo_block_floor": kfl.halo_block_floor_cuda,
+            "lock_window": klw.middle_abs_gradients_cuda}
 
 
 def reset_counts():
@@ -997,7 +1078,8 @@ def gray_runs(launches):
         got = counted_run(
             [ds, "--calib", calib_path, "--out", out, *extra],
             lambda: {"grayphase": 2, "stripe": 1, step: N_FRAMES,
-                     "bilateral": previews},
+                     "bilateral": previews,
+                     "lock_window": int(step == "dynamic_step_lock")},
             native_expected(planes, N_FRAMES, lock=name != "free",
                             previews=previews))
         for k, v in got.items():
@@ -1034,7 +1116,8 @@ def gray_runs(launches):
     out = os.path.join(WORK, "xyz")
     got = counted_run([ds, "--calib", calib_path, "--out", out],
                       lambda: {"grayphase": 2, "stripe": 1,
-                               "dynamic_step_lock": N_FRAMES},
+                               "dynamic_step_lock": N_FRAMES,
+                               "lock_window": 1},
                       native_expected(planes, N_FRAMES, xyz=True),
                       out_format="xyz")
     for k, v in got.items():
@@ -1113,7 +1196,8 @@ def stream_runs(launches, errs):
         got = counted_run(
             [ds, "--calib", calib_path, "--out", out, "--chunk", "8",
              *extra],
-            lambda: {"grayphase": 2, "stripe": 1, step: N_FRAMES},
+            lambda: {"grayphase": 2, "stripe": 1, step: N_FRAMES,
+                     "lock_window": int(step == "dynamic_step_lock")},
             native_expected(planes, N_FRAMES, lock=name != "chunk_free"))
         for k, v in got.items():
             launches[k] += v
@@ -1155,7 +1239,7 @@ def stream_runs(launches, errs):
             [loop_ds, "--calib", os.path.join(loop_ds, "parameters.yml"),
              "--out", out, "--chunk", str(k), "--no-clouds"],
             lambda: {"grayphase": 2, "stripe": 1,
-                     "dynamic_step_lock": N_LOOP_FRAMES},
+                     "dynamic_step_lock": N_LOOP_FRAMES, "lock_window": 1},
             native_expected(planes, N_LOOP_FRAMES))
         for name, v in got.items():
             launches[name] += v
@@ -1241,7 +1325,8 @@ def capture_and_golden(launches):
     got = counted_run([cap, "--calib", os.path.join(cap, "parameters.yml"),
                        "--out", out],
                       lambda: {"grayphase": 2, "stripe": 1,
-                               "dynamic_step_lock": N_CAPTURE_FRAMES},
+                               "dynamic_step_lock": N_CAPTURE_FRAMES,
+                               "lock_window": 1},
                       native_expected(2 * cfg.gray_bits + cfg.phase_steps,
                                       N_CAPTURE_FRAMES))
     for k, v in got.items():
@@ -1542,7 +1627,8 @@ def fringe_runs(dev, launches, level_ms):
     got = counted_run([ds, "--calib", calib_path, "--out", out, "--mode",
                        "heterodyne"],
                       lambda: {"heterodyne": 2, "stripe": 1,
-                               "dynamic_step_lock": N_FRINGE_FRAMES},
+                               "dynamic_step_lock": N_FRINGE_FRAMES,
+                               "lock_window": 1},
                       native_expected(HET.num_images, N_FRINGE_FRAMES))
     for k, v in got.items():
         launches[k] += v
@@ -1571,7 +1657,7 @@ def fringe_runs(dev, launches, level_ms):
         info.update(inf)
         mg = 2 * per_cycle * (inf["cg_iters"] + 1)
         return {"bilateral": 2, "mg_down": mg, "mg_up": mg, "stripe": 1,
-                "dynamic_step_lock": N_FRINGE_FRAMES}
+                "dynamic_step_lock": N_FRINGE_FRAMES, "lock_window": 1}
 
     got = counted_run([ds, "--calib", calib_path, "--out", out, "--mode",
                        "spatial"], spatial_expected,
@@ -2296,6 +2382,7 @@ def main(argv=None) -> int:
         "mg_up": ("mgsmooth.cu", "slc_tpu/pallas/mgsmooth.py:178"),
         "phase_lock": ("dynamic_step.cu", "slc_tpu/pallas/phaselock.py:216"),
         "halo_block_floor": ("floors.cu", "slc_tpu/pallas/floors.py:25"),
+        "lock_window": ("lock_window.cu", "port-only"),
     }
     # The floor's line carries the stripe pattern's times. No single
     # PyTorch call computes the other kernels' functions: their

@@ -83,6 +83,8 @@ _SIGNATURES = {
     "slc_mg_up": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _f, _vp],
     # src (host void*[n]), n, part_bytes, pinned, dev, timed, stream
     "slc_stage_h2d": [_vp, _i, ctypes.c_size_t, _vp, _vp, _i, _vp],
+    # pu, h, w, work, out, stream
+    "slc_lock_window": [_vp, _i, _i, _vp, _vp, _vp],
 }
 
 _lock = threading.Lock()
@@ -178,6 +180,8 @@ def load(path: str) -> ctypes.CDLL:
     l.slc_dynamic_step_lock_scratch.restype = ctypes.c_long
     l.slc_stage_stats.argtypes = [_vp, _i]
     l.slc_stage_stats.restype = None
+    l.slc_lock_window_work_bytes.argtypes = []
+    l.slc_lock_window_work_bytes.restype = ctypes.c_long
     return l
 
 

@@ -14,7 +14,9 @@ closed loop a contraction; a plain box diverges (slc_tpu/ops/demod.py:
 These are plain tensor functions. On the card the locked step runs them
 inside the hand-written kernel (slc_tpu_torch.kernels.dynamic_step);
 ``estimate_period`` runs as plain PyTorch on every device, as slc_tpu
-computes it outside any kernel.
+computes it outside any kernel; ``suggest_lock_window`` takes its median
+on the card (slc_tpu_torch.kernels.lock_window) where the map is there
+or a card is present, else with numpy, as slc_tpu does.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from slc_tpu_torch import metrics
+from slc_tpu_torch.kernels import lock_window as klw
 
 #: Row-band height of the carrier-consistency gate (slc_tpu/ops/demod.py:
 #: 67-73). Bands align to global row 0; the CUDA kernel takes its band
@@ -212,19 +215,40 @@ def _estimate_period(frame, proj_u, period_nominal, win_u, win_v,
     return t
 
 
-def suggest_lock_window(proj_u0: np.ndarray, period: float,
+def _on_card(pu) -> Optional[torch.Tensor]:
+    """``pu`` as a float32 (H, W) tensor on a card, or None for the host
+    path: a card's float32 tensor as it is; a float32 numpy map uploaded
+    to the current card where there is one."""
+    if isinstance(pu, torch.Tensor):
+        ok = (pu.device.type == "cuda" and pu.dtype == torch.float32
+              and pu.ndim == 2)
+        return pu if ok else None
+    if (isinstance(pu, np.ndarray) and pu.dtype == np.float32
+            and pu.ndim == 2 and torch.cuda.is_available()):
+        return torch.from_numpy(np.ascontiguousarray(pu)).to(
+            torch.device("cuda", torch.cuda.current_device()))
+    return None
+
+
+def suggest_lock_window(proj_u0, period: float,
                         periods_per_window: float = 1.0,
                         max_window: int = 64) -> int:
     """Lock-in triangle half-width (camera px) from the frame-0 absolute
     map: T / median(dP/du) times ``periods_per_window``, odd, in
-    [3, max_window] (slc_tpu/ops/demod.py:297-314). Host numpy; its
-    time is the span ``setup.lock_window``."""
+    [3, max_window] (slc_tpu/ops/demod.py:297-314). A float32 (H, W) map
+    on a card, or in host memory where a card is present (copied to the
+    current card first), takes the median on the card (the counter
+    ``setup.lock_window_card``); anything else, host numpy. Either gives
+    the same median bit for bit. Its time is the span
+    ``setup.lock_window``."""
     with metrics.span("setup.lock_window"):
-        pu = np.asarray(proj_u0, np.float64)
-        g = 0.5 * (np.roll(pu, -1, axis=1) - np.roll(pu, 1, axis=1))
-        g = g[1:-1, 1:-1]
-        valid = (pu[1:-1, 1:-1] > 0) & (np.abs(g) > 1e-3)
-        med = float(np.median(np.abs(g[valid]))) if valid.any() else 1.0
+        card = _on_card(proj_u0)
+        n, lo, hi = klw.middle_abs_gradients(
+            proj_u0 if card is None else card)
+        # np.median's own finish: the mean of the two middle values.
+        med = float(np.mean([lo, hi])) if n else 1.0
+        if card is not None:
+            metrics.count("setup.lock_window_card")
     win = int(round(periods_per_window * period / max(med, 1e-3)))
     win = int(np.clip(win, 3, max_window))
     return win if win % 2 else win - 1            # odd, bounded

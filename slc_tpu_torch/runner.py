@@ -190,8 +190,7 @@ def run_replay(dataset_root: str, calib: "Calibration | str",
         lock_period = float(phase_lock)
     lock_win = 9
     if lock_period is not None and lock_window is None:
-        lock_win = suggest_lock_window(first.proj_u.cpu().numpy(),
-                                       lock_period)
+        lock_win = suggest_lock_window(first.proj_u, lock_period)
     elif lock_window is not None:
         lock_win = int(lock_window)
 

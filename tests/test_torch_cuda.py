@@ -9,10 +9,10 @@ card against the CPU, which has no kernel of its own; K steps as one
 CUDA graph against the steps one by one, bit for bit, directly and
 through the runner's chunk path; the frame stager's host copies queued
 on its stream, and timed under a profiler with no device record of the
-program's spans; and the streaming loop's overlap of transfers with steps
-at 1216x1632, tests/test_streaming_tpu.py's bars).
-Marked
-``cuda``: each test skips where there is no card. On the card:
+program's spans; the lock window's median against numpy's, bit for bit,
+at 1024x1280 and on small maps; and the streaming loop's overlap of
+transfers with steps at 1216x1632, tests/test_streaming_tpu.py's bars).
+Marked ``cuda``: each test skips where there is no card. On the card:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
@@ -35,6 +35,7 @@ from slc_tpu_torch.kernels import dynamic_step as kstep
 from slc_tpu_torch.kernels import floors as kfl
 from slc_tpu_torch.kernels import grayphase as kgray
 from slc_tpu_torch.kernels import heterodyne as khet
+from slc_tpu_torch.kernels import lock_window as klw
 from slc_tpu_torch.kernels import mgsmooth as kmg
 from slc_tpu_torch.kernels import phaselock as kpl
 from slc_tpu_torch.kernels import stripe as kstripe
@@ -708,3 +709,128 @@ def test_chunked_run_matches_per_frame_on_the_card(dev, tmp_path):
         a, b = (np.load(tmp_path / f"c{k}" / name) for k in (1, 4))
         for m in ("x", "y", "z"):
             assert np.array_equal(a[m].view(np.uint32), b[m].view(np.uint32))
+
+
+# --- the lock window's median on the card (kernels/lock_window.py) ---
+
+@pytest.fixture(scope="module")
+def decoded_pu():
+    """P of frame 0 as decode_first_frame gives it on the card at
+    1024x1280 (the reference's rig, a tilted plane, noise 1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from slc_tpu_torch.pipeline import decode_first_frame
+    dev = torch.device("cuda", 0)
+    cfg, calib, tables = _setup(1024, 1280, dev)
+    scene = synth.render_static_scene(
+        calib, cfg, synth.plane_surface(50.0, 0.01, -0.01), noise_sigma=1.0)
+    res = decode_first_frame(torch.from_numpy(scene.gray_images).to(dev),
+                             torch.from_numpy(scene.phase_images).to(dev),
+                             tables, cfg)
+    return res.proj_u.cpu().numpy()
+
+
+def _with_parity(parity):
+    """A ragged random map whose count of valid pixels has ``parity``."""
+    for seed in range(100):
+        rng = np.random.default_rng(seed)
+        pu = np.cumsum(rng.uniform(0.0, 1.0, (45, 77)), 1)
+        pu[rng.uniform(size=pu.shape) < 0.1] = 0.0
+        pu = pu.astype(np.float32)
+        if klw.middle_abs_gradients_ref(pu)[0] % 2 == parity:
+            return pu
+    raise AssertionError("no map of that parity")
+
+
+def _lock_map(case, decoded):
+    """The map of a lock-window case, float32 on the host."""
+    rng = np.random.default_rng(3)
+    pu = decoded
+    if case == "holes":
+        pu = pu.copy()
+        pu[rng.uniform(size=pu.shape) < 0.05] = 0.0
+    elif case == "left_zero":
+        pu = pu.copy()
+        pu[:, :400] = 0.0
+    elif case == "mirrored":                  # negative gradients
+        pu = np.ascontiguousarray(pu[:, ::-1])
+    elif case == "ties":                      # few distinct gradients
+        u = np.arange(pu.shape[1], dtype=np.float32)
+        pu = np.tile(0.5 * u + 1.0, (pu.shape[0], 1))
+        pu[::3] = 0.75 * u + 1.0
+        pu[rng.uniform(size=pu.shape) < 0.01] = 0.0
+    elif case in ("even", "odd"):
+        pu = _with_parity(case == "odd")
+    elif case == "none":                      # nothing valid: median 1.0
+        pu = np.full((90, 150), -1.0, np.float32)
+    elif case == "ragged":
+        pu = np.cumsum(rng.uniform(0.3, 0.9, (90, 150)), 1)
+        pu = pu.astype(np.float32)
+    return pu.astype(np.float32)
+
+
+def _f64_bits(x):
+    return np.float64(x).view(np.int64)
+
+
+@pytest.mark.parametrize("case,periods", [
+    ("decoded", (12.0, 20.0, 200.0)), ("holes", (12.0,)),
+    ("left_zero", (12.0, 20.0)), ("mirrored", (12.0,)), ("ties", (12.0,)),
+    ("even", (12.0,)), ("odd", (12.0,)), ("none", (12.0,)),
+    ("ragged", (12.0, 200.0))])
+def test_lock_window_median_on_the_card(dev, decoded_pu, case, periods):
+    """The kernel's n and two middle values equal numpy's; the median
+    taken from them equals np.median bit for bit; the window equals the
+    host path's, from a card tensor and from an uploaded float32 map."""
+    from slc_tpu_torch.ops import demod
+    pu = _lock_map(case, decoded_pu)
+    got = klw.middle_abs_gradients(torch.from_numpy(pu).to(dev))
+    assert got == klw.middle_abs_gradients_ref(pu)
+    n, lo, hi = got
+    a = klw.valid_abs_gradients(pu)
+    assert a.size == n and (case != "none" or n == 0)
+    want = float(np.median(a)) if n else 1.0
+    assert _f64_bits(np.mean([lo, hi]) if n else 1.0) == _f64_bits(want)
+    if case in ("even", "odd"):
+        assert n % 2 == (case == "odd") and (case == "even" or lo == hi)
+    for period in periods:
+        host = demod.suggest_lock_window(pu.astype(np.float64), period)
+        assert demod.suggest_lock_window(torch.from_numpy(pu).to(dev),
+                                         period) == host
+        assert demod.suggest_lock_window(pu, period) == host
+
+
+def test_lock_window_rounds_half_to_even_on_the_card(dev):
+    """A constant gradient of 0.5 with period 10.25 puts T / med on 20.5,
+    which Python's round takes to 20 (window 19); half up would give 21."""
+    from slc_tpu_torch.ops import demod
+    u = np.arange(150, dtype=np.float32)
+    pu = np.tile(0.5 * u + 1.0, (90, 1))
+    n, lo, hi = klw.middle_abs_gradients(torch.from_numpy(pu).to(dev))
+    assert n == 88 * 148 and lo == hi == 0.5
+    assert demod.suggest_lock_window(torch.from_numpy(pu).to(dev),
+                                     10.25) == 19
+    assert demod.suggest_lock_window(pu.astype(np.float64), 10.25) == 19
+
+
+def test_lock_window_counts_card_calls(dev):
+    """A call on the card launches the kernel's wrapper once; under a
+    profiler it counts ``setup.lock_window_card`` once and times its
+    span; without one it records nothing. The launches are capturable
+    (no wait), as its timing in a CUDA graph needs."""
+    from slc_tpu_torch import metrics
+    from slc_tpu_torch.ops import demod
+    pu = torch.from_numpy(_lock_map("ragged", None)).to(dev)
+    klw.middle_abs_gradients_cuda.launches = 0
+    metrics.reset()
+    win = demod.suggest_lock_window(pu, 12.0)
+    assert klw.middle_abs_gradients_cuda.launches == 1
+    assert metrics.counters() == {} and metrics.span_totals() == {}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert demod.suggest_lock_window(pu, 12.0) == win
+    assert metrics.counters() == {"setup.lock_window_card": 1}
+    assert metrics.span_totals()["setup.lock_window"]["calls"] == 1
+    metrics.reset()
+    assert devtime.graph_time_s(
+        lambda: klw.middle_abs_gradients_cuda(pu), n=2, warmup=1) > 0

@@ -1,6 +1,7 @@
 """Phase-lock demodulation (slc_tpu_torch.ops.demod) against
 slc_tpu.ops.demod on rendered stripe frames: correction to 2e-3 px,
-period to 1e-4 relative, lock window exact, and the carrier gate's
+period to 1e-4 relative, lock window exact (by the host path and by the
+card path's finish from the plain middle values), and the carrier gate's
 per-band decisions identical."""
 
 import numpy as np
@@ -14,6 +15,8 @@ from slc_tpu import synth as jsynth
 from slc_tpu.config import SystemConfig as JConfig
 from slc_tpu.ops import demod as jdemod
 
+from slc_tpu_torch import metrics
+from slc_tpu_torch.kernels import lock_window as klw
 from slc_tpu_torch.ops import demod as tdemod
 
 torch.set_num_threads(2)
@@ -112,6 +115,102 @@ def test_suggest_lock_window_identical(period):
     pu[:, :5] = 0.0
     assert (tdemod.suggest_lock_window(pu, period)
             == jdemod.suggest_lock_window(pu, period))
+
+
+@pytest.fixture(scope="module")
+def decoded_pu():
+    return np.asarray(_sequence(96, 160)[2][0], np.float32)
+
+
+LOCK_CASES = ["decoded", "holes", "left_zero", "mirrored", "ties", "none",
+              "half", "ragged"]
+
+
+def _lock_case(case, decoded):
+    """A float32 map for the lock window: the rendered P, with holes, with
+    its left columns zeroed, mirrored (negative gradients), a map of two
+    gradients (ties), one with nothing valid, a constant gradient of 0.5,
+    a ragged random map."""
+    rng = np.random.default_rng(5)
+    u = np.arange(150, dtype=np.float32)
+    if case == "holes":
+        return np.where(rng.uniform(size=decoded.shape) < 0.05, 0.0,
+                        decoded).astype(np.float32)
+    if case == "left_zero":
+        pu = decoded.copy()
+        pu[:, :60] = 0.0
+        return pu
+    if case == "mirrored":
+        return np.ascontiguousarray(decoded[:, ::-1])
+    if case == "ties":
+        pu = np.tile(0.5 * u + 1.0, (90, 1))
+        pu[::3] = 0.75 * u + 1.0
+        return pu
+    if case == "none":
+        return np.full((90, 150), -1.0, np.float32)
+    if case == "half":
+        return np.tile(0.5 * u + 1.0, (90, 1))
+    if case == "ragged":
+        return np.cumsum(rng.uniform(0.3, 0.9, (90, 150)), 1).astype(
+            np.float32)
+    return decoded
+
+
+@pytest.mark.parametrize("case", LOCK_CASES)
+def test_middle_gradients_are_numpys_median(decoded_pu, case):
+    """The plain version's n and two middle values are the sorted |g|'s,
+    and their mean is np.median bit for bit: the finish the card path
+    takes."""
+    pu = _lock_case(case, decoded_pu)
+    n, lo, hi = klw.middle_abs_gradients_ref(pu)
+    a = np.sort(klw.valid_abs_gradients(pu))
+    assert n == a.size and (n == 0) == (case == "none")
+    if n:
+        assert (lo, hi) == (a[(n - 1) // 2], a[n // 2])
+        assert (np.float64(np.mean([lo, hi])).view(np.int64)
+                == np.float64(np.median(a)).view(np.int64))
+
+
+@pytest.mark.parametrize("case", LOCK_CASES)
+@pytest.mark.parametrize("period", [10.25, 12.0, 200.0])
+def test_card_branch_window_matches_jax(monkeypatch, decoded_pu, case,
+                                        period):
+    """The card branch of suggest_lock_window, fed the plain middle values
+    (a CPU tensor standing in for the card's), gives slc_tpu's window
+    (10.25 on the constant gradient 0.5 lands on 20.5: round to even) and
+    counts ``setup.lock_window_card`` once under a profiler."""
+    pu = _lock_case(case, decoded_pu)
+    monkeypatch.setattr(tdemod, "_on_card", torch.from_numpy)
+    metrics.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        win = tdemod.suggest_lock_window(pu, period)
+    assert win == jdemod.suggest_lock_window(pu, period)
+    if case == "half" and period == 10.25:
+        assert win == 19
+    assert metrics.counters() == {"setup.lock_window_card": 1}
+    metrics.reset()
+
+
+@pytest.mark.parametrize("form", ["cpu_tensor", "float64", "float32"])
+@pytest.mark.parametrize("period", [12.0, 20.0, 200.0])
+def test_host_inputs_take_the_numpy_path(monkeypatch, decoded_pu, form,
+                                         period):
+    """With no card, a float32 map, a CPU tensor and a float64 map take
+    the host path (no counter) and give slc_tpu's window."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pu = _lock_case("left_zero", decoded_pu)
+    arg = {"cpu_tensor": torch.from_numpy(pu),
+           "float64": pu.astype(np.float64), "float32": pu}[form]
+    assert tdemod._on_card(arg) is None
+    metrics.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        win = tdemod.suggest_lock_window(arg, period)
+    assert win == jdemod.suggest_lock_window(pu, period)
+    assert metrics.counters() == {}
+    assert metrics.span_totals()["setup.lock_window"]["calls"] == 1
+    metrics.reset()
 
 
 @pytest.mark.parametrize("n, win", [(160, 21), (90, 9), (150, 63), (7, 9)])

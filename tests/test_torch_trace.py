@@ -61,7 +61,7 @@ def _tracked_loop(scene):
     res = decode_first_frame(torch.from_numpy(first.gray_images),
                              torch.from_numpy(first.phase_images), tables,
                              CFG)
-    win = demod.suggest_lock_window(res.proj_u.numpy(), 12.0)
+    win = demod.suggest_lock_window(res.proj_u, 12.0)
     float(demod.estimate_period(torch.from_numpy(frames[0]), res.proj_u,
                                 12.0, win_u=win))
     state = init_tracker(torch.from_numpy(frames[0]), res.proj_u, res.z,
