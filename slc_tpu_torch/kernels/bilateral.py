@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from slc_tpu_torch import metrics
 from slc_tpu_torch.kernels import _build
 from slc_tpu_torch.ops import filters
 
@@ -36,15 +37,18 @@ def bilateral_filter_ref(img: torch.Tensor, sigma_color: float = 10.0,
 def bilateral_filter_cuda(img: torch.Tensor, sigma_color: float = 10.0,
                           sigma_space: float = 25.0) -> torch.Tensor:
     """The hand-written kernel: ``img`` is a contiguous (H, W) f32 CUDA
-    tensor; returns a new (H, W) f32 map."""
+    tensor; returns a new (H, W) f32 map. The host work before the
+    launch is the span ``kernel.prep``."""
     if img.ndim != 2 or img.numel() == 0:
         raise ValueError(f"img: expected a non-empty (H, W) tensor, got "
                          f"{tuple(img.shape)}")
     dev = img.device
     h, w = img.shape
-    _build.require(img, "img", torch.float32, (h, w), dev)
-    out = torch.empty((h, w), dtype=torch.float32, device=dev)
-    inv2sc, inv2ss = filters.bilateral_constants(sigma_color, sigma_space)
+    with metrics.span("kernel.prep"):
+        _build.require(img, "img", torch.float32, (h, w), dev)
+        out = torch.empty((h, w), dtype=torch.float32, device=dev)
+        inv2sc, inv2ss = filters.bilateral_constants(sigma_color,
+                                                     sigma_space)
     _build.launch("slc_bilateral", dev, img.data_ptr(), out.data_ptr(), h,
                   w, inv2sc, inv2ss)
     bilateral_filter_cuda.launches += 1

@@ -29,6 +29,7 @@ from typing import Tuple
 
 import torch
 
+from slc_tpu_torch import metrics
 from slc_tpu_torch.kernels import _build
 from slc_tpu_torch.ops.unwrap_spatial import MG_OMEGA, _matvec
 
@@ -72,10 +73,12 @@ def mg_down_cuda(r: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor,
                  dinv: torch.Tensor, omega: float = MG_OMEGA
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The hand-written descent kernel. ``r``, ``dinv`` (h, w), ``wy``
-    (h-1, w), ``wx`` (h, w-1): contiguous f32 on one CUDA device."""
-    h, w = _require_level(r, wy, wx, dinv)
-    e = torch.empty_like(r)
-    res = torch.empty_like(r)
+    (h-1, w), ``wx`` (h, w-1): contiguous f32 on one CUDA device. The
+    host work before the launch is the span ``kernel.prep``."""
+    with metrics.span("kernel.prep"):
+        h, w = _require_level(r, wy, wx, dinv)
+        e = torch.empty_like(r)
+        res = torch.empty_like(r)
     _build.launch("slc_mg_down", r.device, r.data_ptr(), wy.data_ptr(),
                   wx.data_ptr(), dinv.data_ptr(), e.data_ptr(),
                   res.data_ptr(), h, w, float(omega))
@@ -90,9 +93,10 @@ def mg_up_cuda(e: torch.Tensor, r: torch.Tensor, wy: torch.Tensor,
                wx: torch.Tensor, dinv: torch.Tensor,
                omega: float = MG_OMEGA) -> torch.Tensor:
     """The hand-written ascent kernel; shapes as :func:`mg_down_cuda`,
-    ``e`` (h, w)."""
-    h, w = _require_level(r, wy, wx, dinv, ((e, "e"),))
-    out = torch.empty_like(r)
+    ``e`` (h, w); its host work before the launch is ``kernel.prep``."""
+    with metrics.span("kernel.prep"):
+        h, w = _require_level(r, wy, wx, dinv, ((e, "e"),))
+        out = torch.empty_like(r)
     _build.launch("slc_mg_up", r.device, e.data_ptr(), r.data_ptr(),
                   wy.data_ptr(), wx.data_ptr(), dinv.data_ptr(),
                   out.data_ptr(), h, w, float(omega))

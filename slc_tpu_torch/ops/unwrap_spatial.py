@@ -39,6 +39,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from slc_tpu_torch import metrics
+
 
 def wrap_to_half(d: torch.Tensor, period: float) -> torch.Tensor:
     """Wrap values into [-T/2, T/2)."""
@@ -241,6 +243,13 @@ def suspect_edges(p: torch.Tensor, psi: torch.Tensor, period: float,
     return out
 
 
+def _above(r: torch.Tensor, bound: torch.Tensor) -> bool:
+    """Whether the residual norm is above ``bound``, read back to the
+    host: the span ``unwrap.wait``."""
+    with metrics.span("unwrap.wait"):
+        return bool(torch.sqrt(torch.sum(r * r)) > bound)
+
+
 def unwrap_spatial(psi: torch.Tensor, period: float,
                    quality: Optional[torch.Tensor] = None,
                    max_iters: int = 300, tol: float = 3e-4,
@@ -256,7 +265,12 @@ def unwrap_spatial(psi: torch.Tensor, period: float,
     absolute coordinate, congruent with psi modulo T at every pixel;
     with ``return_info`` also a dict of ``cg_iters`` (int),
     ``rel_residual``, ``residue_count``, ``suspect``, ``suspect_count``,
-    ``anchor_disagreement`` and ``anchor_disagreement_count``."""
+    ``anchor_disagreement`` and ``anchor_disagreement_count``.
+
+    Under a profiler it counts ``unwrap.calls`` (1 a call) and
+    ``unwrap.cg_iters`` (its CG iterations), and spans
+    ``unwrap.levels`` (the multigrid hierarchy's enqueue) and
+    ``unwrap.wait`` (each residual read-back, a wait on the device)."""
     psi = psi.float()
     if quality is None:
         quality = torch.ones_like(psi)
@@ -265,7 +279,8 @@ def unwrap_spatial(psi: torch.Tensor, period: float,
     wy, wx = edge_weights(quality)
     b = _rhs(dy, dx, wy, wx)
     if mg:
-        levels = build_mg_levels(wy, wx, psi.shape[0], psi.shape[1])
+        with metrics.span("unwrap.levels"):
+            levels = build_mg_levels(wy, wx, psi.shape[0], psi.shape[1])
         precond = lambda r: vcycle(r, levels)       # noqa: E731
     else:
         dinv = 1.0 / _diag(wy, wx)
@@ -279,8 +294,7 @@ def unwrap_spatial(psi: torch.Tensor, period: float,
     b_norm = torch.sqrt(torch.sum(b * b)) + 1e-20
     iters = 0
     # The stopping test reads one bool back per iteration.
-    while iters < max_iters and bool(torch.sqrt(torch.sum(r * r))
-                                     > tol * b_norm):
+    while iters < max_iters and _above(r, tol * b_norm):
         ad = _matvec(d, wy, wx)
         rz = torch.sum(r * z)
         alpha = rz / torch.clamp(torch.sum(d * ad), min=1e-20)
@@ -293,6 +307,8 @@ def unwrap_spatial(psi: torch.Tensor, period: float,
                            / torch.clamp(rz, min=1e-20), min=0.0)
         r, z, d = r_new, z_new, z_new + beta * d
         iters += 1
+    metrics.count("unwrap.calls")
+    metrics.count("unwrap.cg_iters", iters)
 
     # Remove the nullspace drift relative to the anchor, then snap to
     # congruence with the measurement.
