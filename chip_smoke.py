@@ -96,7 +96,11 @@ Run from the root of a checkout. In order it:
      map up to one global period offset on 99% of the decoded interior.
      The multigrid kernels must launch 7 times per preconditioner call,
      ``cg_iters + 1`` calls per decode, ``cg_iters`` taken from a direct
-     ``unwrap_spatial(..., return_info=True)`` on the same input.
+     ``unwrap_spatial(..., return_info=True)`` on the same input. The
+     direct decode is then timed through the CG's two CUDA graphs and
+     through the eager loop, three calls each in turns after the first
+     graph call (the capture), each map bit-equal to the direct one and
+     with those level launches;
    - the streaming loop (between the gray and the fringe runs):
      ``--chunk 8`` (K steps as one CUDA graph replay) locked and with
      ``--phase-lock off`` on the gray dataset, every cloud bit-identical
@@ -1701,6 +1705,64 @@ def fringe_runs(dev, launches, level_ms):
         f"{float((cloud['z'] > 0).mean()):.5f} of frame 0")
     require(frac > 0.9, f"spatial decode covers only {frac} of the lit px")
     require(cong >= 0.99, f"spatial P congruent on only {cong}")
+    spatial_graph_timing(p0, tables, cfg, period, direct,
+                         per_cycle * (info["cg_iters"] + 1))
+
+
+class EagerCG:
+    """Stands in for ``U._cg_graphs``: the unwrap's CG loop launch by
+    launch on the card."""
+
+    def __init__(self, dev, h, w, period, tol, mg):
+        self.args = (period, tol, mg)
+
+    def run(self, psi, quality, anc, max_iters):
+        return U._cg_eager(psi, quality, anc, *self.args, max_iters)
+
+
+def spatial_graph_timing(p0, tables, cfg, period, direct, mg_launches):
+    """Phase 5b's spatial decode timed through the CG's two CUDA graphs
+    and through the eager loop, one after the other: host ms to a
+    synchronise, the first graph call after the graphs are dropped
+    (their capture, then the replays) and three calls of each path in
+    turns. Every map must equal the direct decode's bit for bit, and
+    each path launch ``mg_launches`` of each level kernel a decode."""
+    def decode(eager):
+        real = U._cg_graphs
+        if eager:
+            U._cg_graphs = EagerCG
+        kmg.mg_down_cuda.launches = kmg.mg_up_cuda.launches = 0
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = decode_spatial_frame(p0, tables, cfg, period)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            U._cg_graphs = real
+        what = "eager" if eager else "graphs"
+        for k in ("z", "proj_u"):
+            require(torch.equal(getattr(res, k), getattr(direct, k)),
+                    f"spatial decode through the {what}: {k} differs")
+        got = (kmg.mg_down_cuda.launches, kmg.mg_up_cuda.launches)
+        require(got == (mg_launches, mg_launches),
+                f"spatial decode through the {what}: level kernel launches "
+                f"{got}, expected {mg_launches} each")
+        return ms
+
+    U._cg_graphs.cache_clear()
+    first = decode(False)
+    ms = {False: [], True: []}
+    for eager in (False, True, True, False, False, True):
+        ms[eager].append(decode(eager))
+    graphs, eager = (float(np.median(ms[e])) for e in (False, True))
+    log(f"e2e spatial: decode_spatial_frame {cfg.cam_h}x{cfg.cam_w} through "
+        f"the CG graphs {graphs:.2f} ms, the eager loop {eager:.2f} ms "
+        f"(medians of 3, in turns; graphs "
+        f"{', '.join(f'{v:.2f}' for v in ms[False])}, eager "
+        f"{', '.join(f'{v:.2f}' for v in ms[True])}); first graph call {first:.2f} ms, so the "
+        f"capture ~{first - graphs:.2f} ms; {mg_launches} launches of each "
+        f"level kernel a decode on both")
 
 
 def tiled_mg_visits(h, w):

@@ -18,8 +18,11 @@ then snapped to congruence with the measured wrapped phase
 
 Differences from slc_tpu, by design:
 
-- The CG loop is a Python loop that reads the residual norm on the host
-  once per iteration (slc_tpu runs ``lax.while_loop`` on the device).
+- The CG loop is a Python loop that reads the stopping test back to the
+  host once per iteration (slc_tpu runs ``lax.while_loop`` on the
+  device). On the card its start and each iteration are replays of two
+  CUDA graphs, a few thousand small launches each, so the host no
+  longer paces the card.
 - The transfer operators take the strided form on every device
   (slc_tpu's CPU branch of ``_tpu_layout``; its TPU branch differs only
   in float association).
@@ -34,7 +37,8 @@ Differences from slc_tpu, by design:
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -243,11 +247,184 @@ def suspect_edges(p: torch.Tensor, psi: torch.Tensor, period: float,
     return out
 
 
-def _above(r: torch.Tensor, bound: torch.Tensor) -> bool:
-    """Whether the residual norm is above ``bound``, read back to the
-    host: the span ``unwrap.wait``."""
+class _CG(NamedTuple):
+    """The CG's state between iterations: the operator's edge weights,
+    the preconditioner's data (the multigrid levels, or the Jacobi
+    inverse diagonal), the iterate ``p``, the residual ``r``, the
+    preconditioned residual ``z``, the direction ``d``, the norm of the
+    right-hand side and the stopping test's flag, a device bool."""
+    wy: torch.Tensor
+    wx: torch.Tensor
+    pre: object
+    p: torch.Tensor
+    r: torch.Tensor
+    z: torch.Tensor
+    d: torch.Tensor
+    b_norm: torch.Tensor
+    go: torch.Tensor
+
+
+#: The fields of :class:`_CG` that an iteration changes.
+_MOVING = ("p", "r", "z", "d", "go")
+
+
+def _precond(pre, r: torch.Tensor) -> torch.Tensor:
+    """The K-cycle over the levels ``pre``, or Jacobi by its inverse
+    diagonal."""
+    return vcycle(r, pre) if isinstance(pre, list) else pre * r
+
+
+def _go(r: torch.Tensor, b_norm: torch.Tensor, tol: float) -> torch.Tensor:
+    """The stopping test on the device: the residual norm above
+    ``tol`` times b's norm."""
+    return torch.sqrt(torch.sum(r * r)) > tol * b_norm
+
+
+def _cg_start(psi: torch.Tensor, quality: torch.Tensor, anc: torch.Tensor,
+              period: float, tol: float, mg: bool) -> _CG:
+    """The normal equations, the preconditioner and the CG's first state
+    from the anchor: everything before the first stopping test."""
+    dy, dx = wrapped_gradients(psi, period)
+    wy, wx = edge_weights(quality)
+    b = _rhs(dy, dx, wy, wx)
+    if mg:
+        with metrics.span("unwrap.levels"):
+            pre = build_mg_levels(wy, wx, psi.shape[0], psi.shape[1])
+    else:
+        pre = 1.0 / _diag(wy, wx)
+    r = b - _matvec(anc, wy, wx)
+    z = _precond(pre, r)
+    b_norm = torch.sqrt(torch.sum(b * b)) + 1e-20
+    return _CG(wy, wx, pre, anc, r, z, z, b_norm, _go(r, b_norm, tol))
+
+
+def _cg_iterate(st: _CG, tol: float) -> _CG:
+    """One preconditioned CG iteration and the next stopping test."""
+    r, z, d = st.r, st.z, st.d
+    ad = _matvec(d, st.wy, st.wx)
+    rz = torch.sum(r * z)
+    alpha = rz / torch.clamp(torch.sum(d * ad), min=1e-20)
+    p = st.p + alpha * d
+    r_new = r - alpha * ad
+    z_new = _precond(st.pre, r_new)
+    # Flexible (Polak-Ribiere+) beta for the K-cycle's mildly nonlinear
+    # preconditioner.
+    beta = torch.clamp(torch.sum(z_new * (r_new - r))
+                       / torch.clamp(rz, min=1e-20), min=0.0)
+    return st._replace(p=p, r=r_new, z=z_new, d=z_new + beta * d,
+                       go=_go(r_new, st.b_norm, tol))
+
+
+def _above(go: torch.Tensor) -> bool:
+    """The stopping test's flag read back to the host: the span
+    ``unwrap.wait``."""
     with metrics.span("unwrap.wait"):
-        return bool(torch.sqrt(torch.sum(r * r)) > bound)
+        return bool(go)
+
+
+def _cg_eager(psi: torch.Tensor, quality: torch.Tensor, anc: torch.Tensor,
+              period: float, tol: float, mg: bool, max_iters: int
+              ) -> Tuple[_CG, int]:
+    """The CG loop launch by launch: the final state and the iteration
+    count. Every read-back is one stopping test."""
+    st = _cg_start(psi, quality, anc, period, tol, mg)
+    iters = 0
+    while iters < max_iters and _above(st.go):
+        st = _cg_iterate(st, tol)
+        iters += 1
+    return st, iters
+
+
+class _CGGraphs:
+    """The CG loop of one shape on one card as two CUDA graphs: ``start``
+    (:func:`_cg_start` from the static inputs ``psi``, ``quality`` and
+    ``anchor``) and ``iterate`` (:func:`_cg_iterate`, its results copied
+    back into the state ``start`` made). The same functions as the eager
+    loop, so the same kernels in the same order: a replay enqueues a few
+    thousand launches at once.
+
+    Before capturing, the kernel library is loaded and the two bodies
+    run once eagerly. The two graphs share one memory pool and the
+    state; the launch counts of the level kernels are left as they were
+    and each replay adds what its graph launches. The graphs, their
+    pool and the buffers live as long as this object."""
+
+    def __init__(self, dev: torch.device, h: int, w: int, period: float,
+                 tol: float, mg: bool):
+        from slc_tpu_torch.kernels import _build, mgsmooth
+        self.tol = tol
+        self.kernels = (mgsmooth.mg_down_cuda, mgsmooth.mg_up_cuda)
+        self.psi, self.quality, self.anchor = (
+            torch.zeros((h, w), dtype=torch.float32, device=dev)
+            for _ in range(3))
+        self.dev = dev
+        _build.lib()
+        before = [k.launches for k in self.kernels]
+        try:
+            with torch.cuda.device(dev):
+                _cg_iterate(self._start_body(period, mg), tol)
+                torch.cuda.synchronize(dev)
+                self.start = torch.cuda.CUDAGraph()
+                self.start_launches = self._capture(
+                    self.start, None, lambda: self._start_body(period, mg))
+                self.iterate = torch.cuda.CUDAGraph()
+                self.iterate_launches = self._capture(
+                    self.iterate, self.start.pool(), self._iterate_body)
+        finally:
+            for k, n in zip(self.kernels, before):
+                k.launches = n
+
+    def _start_body(self, period: float, mg: bool) -> _CG:
+        st = _cg_start(self.psi, self.quality, self.anchor, period,
+                       self.tol, mg)
+        # The iteration writes p and d in place: neither may alias the
+        # anchor or z.
+        self.st = st._replace(p=st.p.clone(), d=st.d.clone())
+        return self.st
+
+    def _iterate_body(self) -> None:
+        new = _cg_iterate(self.st, self.tol)
+        for name in _MOVING:
+            getattr(self.st, name).copy_(getattr(new, name))
+
+    def _capture(self, graph, pool, body) -> list:
+        """Capture ``body`` into ``graph``; the level kernels' launches
+        it holds."""
+        before = [k.launches for k in self.kernels]
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            body()
+        metrics.count("unwrap.graph_captures")
+        return [k.launches - n for k, n in zip(self.kernels, before)]
+
+    def _replay(self, graph, launches) -> None:
+        graph.replay()
+        for k, n in zip(self.kernels, launches):
+            k.launches += n
+        metrics.count("unwrap.graph_replays")
+
+    def run(self, psi: torch.Tensor, quality: torch.Tensor,
+            anc: torch.Tensor, max_iters: int) -> Tuple[_CG, int]:
+        """:func:`_cg_eager` by replays: the final state (the graphs'
+        buffers, valid until the next call) and the iteration count."""
+        for dst, src in ((self.psi, psi), (self.quality, quality),
+                         (self.anchor, anc)):
+            dst.copy_(src)
+        with torch.cuda.device(self.dev):
+            self._replay(self.start, self.start_launches)
+            iters = 0
+            while iters < max_iters and _above(self.st.go):
+                self._replay(self.iterate, self.iterate_launches)
+                iters += 1
+        return self.st, iters
+
+
+@functools.lru_cache(maxsize=4)
+def _cg_graphs(dev: torch.device, h: int, w: int, period: float,
+               tol: float, mg: bool) -> _CGGraphs:
+    """The captured CG loop of one card, shape, period, tolerance and
+    preconditioner, captured on first use."""
+    return _CGGraphs(dev, h, w, period, tol, mg)
 
 
 def unwrap_spatial(psi: torch.Tensor, period: float,
@@ -267,54 +444,39 @@ def unwrap_spatial(psi: torch.Tensor, period: float,
     ``rel_residual``, ``residue_count``, ``suspect``, ``suspect_count``,
     ``anchor_disagreement`` and ``anchor_disagreement_count``.
 
-    Under a profiler it counts ``unwrap.calls`` (1 a call) and
-    ``unwrap.cg_iters`` (its CG iterations), and spans
-    ``unwrap.levels`` (the multigrid hierarchy's enqueue) and
-    ``unwrap.wait`` (each residual read-back, a wait on the device)."""
+    A CPU tensor runs the CG loop launch by launch; any other takes the
+    loop's two CUDA graphs for its card, shape, ``period``, ``tol`` and
+    ``mg`` (:class:`_CGGraphs`, captured on the first call, the last
+    four such kept), or raises. Both run the same kernels in the same
+    order and read the stopping test back once an iteration.
+
+    Under a profiler it counts ``unwrap.calls`` (1 a call),
+    ``unwrap.cg_iters`` (its CG iterations) and, on the graphs,
+    ``unwrap.graph_replays`` (1 a replay: 1 + ``cg_iters`` a call) and
+    ``unwrap.graph_captures`` (2 a capture); it spans ``unwrap.levels``
+    (the multigrid hierarchy's enqueue, eager or captured) and
+    ``unwrap.wait`` (each read-back of the stopping test, a wait on the
+    device)."""
     psi = psi.float()
     if quality is None:
         quality = torch.ones_like(psi)
     quality = quality.float()
-    dy, dx = wrapped_gradients(psi, period)
-    wy, wx = edge_weights(quality)
-    b = _rhs(dy, dx, wy, wx)
-    if mg:
-        with metrics.span("unwrap.levels"):
-            levels = build_mg_levels(wy, wx, psi.shape[0], psi.shape[1])
-        precond = lambda r: vcycle(r, levels)       # noqa: E731
-    else:
-        dinv = 1.0 / _diag(wy, wx)
-        precond = lambda r: dinv * r                # noqa: E731
-
     anc = anchor.float() if anchor is not None else psi
-    p = anc
-    r = b - _matvec(p, wy, wx)
-    z = precond(r)
-    d = z
-    b_norm = torch.sqrt(torch.sum(b * b)) + 1e-20
-    iters = 0
-    # The stopping test reads one bool back per iteration.
-    while iters < max_iters and _above(r, tol * b_norm):
-        ad = _matvec(d, wy, wx)
-        rz = torch.sum(r * z)
-        alpha = rz / torch.clamp(torch.sum(d * ad), min=1e-20)
-        p = p + alpha * d
-        r_new = r - alpha * ad
-        z_new = precond(r_new)
-        # Flexible (Polak-Ribiere+) beta for the K-cycle's mildly
-        # nonlinear preconditioner.
-        beta = torch.clamp(torch.sum(z_new * (r_new - r))
-                           / torch.clamp(rz, min=1e-20), min=0.0)
-        r, z, d = r_new, z_new, z_new + beta * d
-        iters += 1
+    if psi.device.type == "cpu":
+        st, iters = _cg_eager(psi, quality, anc, period, tol, mg, max_iters)
+    else:
+        st, iters = _cg_graphs(psi.device, psi.shape[0], psi.shape[1],
+                               float(period), float(tol), bool(mg)).run(
+            psi, quality, anc, max_iters)
     metrics.count("unwrap.calls")
     metrics.count("unwrap.cg_iters", iters)
 
     # Remove the nullspace drift relative to the anchor, then snap to
-    # congruence with the measurement.
+    # congruence with the measurement. Every tensor returned is new: on
+    # the graphs, st holds their buffers.
     wsum = torch.clamp(quality.sum(), min=1e-20)
-    shift = torch.sum(quality * (p - anc)) / wsum
-    p = p - shift + torch.round(shift / period) * period
+    shift = torch.sum(quality * (st.p - anc)) / wsum
+    p = st.p - shift + torch.round(shift / period) * period
     k = torch.round((p - psi) / period)
     out = psi + k * period
     if not return_info:
@@ -324,7 +486,7 @@ def unwrap_spatial(psi: torch.Tensor, period: float,
     dis = (out - anc).abs() > period / 2.0
     info = {
         "cg_iters": iters,
-        "rel_residual": torch.sqrt(torch.sum(r * r)) / b_norm,
+        "rel_residual": torch.sqrt(torch.sum(st.r * st.r)) / st.b_norm,
         "residue_count": res.abs().sum(),
         "suspect": sus,
         "suspect_count": sus.sum(),

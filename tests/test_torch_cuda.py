@@ -3,7 +3,10 @@ the CPU tests' small shapes (96x160 and a ragged 90x150; the track
 launch also at 1000x1270, the heterodyne decode at 97x157 and at 3 x 5
 steps, the bilateral filter at 97x157, 1x1280 and 1024x1 and with 50%
 holes, the multigrid kernels at 97x201 and at the level shapes of both
-of chip_smoke.py's chains, the floors at widths 1270-1280; the preview
+of chip_smoke.py's chains, the floors at widths 1270-1280; the spatial
+unwrap's CG through its two CUDA graphs against the eager loop, bit for
+bit, at 1024x1280, 1000x1270 and 96x160, and two calls in turn through
+one pair of graphs; the preview
 render through the bilateral kernel and multi-scan registration on the
 card against the CPU, which has no kernel of its own; K steps as one
 CUDA graph against the steps one by one, bit for bit, directly and
@@ -194,6 +197,117 @@ def test_mg_level_kernels(dev, shape):
            2e-6)
     _close([kmg.mg_up_cuda(e, r, wy, wx, dinv)],
            [kmg.mg_up_ref(e, r, wy, wx, dinv)], 2e-6)
+
+
+def _box_scene(dev, h, w, seed):
+    """tests/test_unwrap_spatial.py's box-step scene at (h, w), as
+    chip_smoke.py's ``unwrap_scene``: a ramp 5 periods wide and 0.4 px a
+    row, a box 3.7 periods high ringed by quality 0, noise 0.05, an
+    anchor off by up to a third of a period. (t, psi, q, anchor) on the
+    card."""
+    rng = np.random.default_rng(seed)
+    t = 32.0
+    x = (np.linspace(0, 5 * t, w)[None, :]
+         + 0.4 * np.arange(h)[:, None]).astype(np.float64)
+    box = np.zeros((h, w), bool)
+    box[h // 3: 2 * h // 3, w // 3: 2 * w // 3] = True
+    x = x + 3.7 * t * box
+    psi = np.mod(x + rng.normal(0, 0.05, (h, w)), t).astype(np.float32)
+    ring = np.zeros_like(box)
+    ring[h // 3 - 2: 2 * h // 3 + 2, w // 3 - 2: 2 * w // 3 + 2] = True
+    ring[h // 3 + 2: 2 * h // 3 - 2, w // 3 + 2: 2 * w // 3 - 2] = False
+    q = np.where(ring, 0.0, 1.0).astype(np.float32)
+    anchor = (x + rng.uniform(-t / 3, t / 3, x.shape)).astype(np.float32)
+    return (t,) + tuple(torch.from_numpy(a).to(dev)
+                        for a in (psi, q, anchor))
+
+
+class _EagerCG:
+    """A stand-in for ``_cg_graphs``' graphs that runs the CG loop
+    launch by launch: ``unwrap_spatial`` on the card through the eager
+    loop."""
+
+    def __init__(self, dev, h, w, period, tol, mg):
+        self.args = (period, tol, mg)
+
+    def run(self, psi, quality, anc, max_iters):
+        return U._cg_eager(psi, quality, anc, *self.args, max_iters)
+
+
+def _unwrap_counted(monkeypatch, eager, *args, **kw):
+    """unwrap_spatial(*args, return_info=True, **kw) through the graphs
+    or (``eager``) the eager loop, with the level kernels' launch counts
+    from 0, under a profiler: (P, info, launches, counters)."""
+    from slc_tpu_torch import metrics
+    kmg.mg_down_cuda.launches = kmg.mg_up_cuda.launches = 0
+    metrics.reset()
+    with monkeypatch.context() as m:
+        if eager:
+            m.setattr(U, "_cg_graphs", _EagerCG)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            p, info = U.unwrap_spatial(*args, return_info=True, **kw)
+    torch.cuda.synchronize()
+    launches = (kmg.mg_down_cuda.launches, kmg.mg_up_cuda.launches)
+    counters = metrics.counters()
+    metrics.reset()
+    return p, info, launches, counters
+
+
+def _same_unwrap(got, want):
+    """P, the iteration count and the relative residual, bit for bit."""
+    assert torch.equal(_bits(got[0]), _bits(want[0]))
+    assert got[1]["cg_iters"] == want[1]["cg_iters"] >= 1
+    assert torch.equal(_bits(got[1]["rel_residual"]),
+                       _bits(want[1]["rel_residual"]))
+
+
+@pytest.mark.parametrize("mg", [True, False], ids=["mg", "jacobi"])
+@pytest.mark.parametrize("anchored", [False, True],
+                         ids=["unanchored", "anchored"])
+@pytest.mark.parametrize("shape", [(1024, 1280), (1000, 1270), (96, 160)])
+def test_cg_graphs_equal_the_eager_loop(dev, monkeypatch, shape, anchored,
+                                        mg):
+    """The unwrap's CG through its two CUDA graphs gives the eager loop's
+    P, iterations and residual bit for bit (the same kernels in the same
+    order); the level kernels' launch counts move as the eager loop's
+    (the capture adds none); and every start and iteration is a replay,
+    ``unwrap.graph_replays`` = ``unwrap.calls`` + ``unwrap.cg_iters``."""
+    t, psi, q, anchor = _box_scene(dev, *shape, seed=1)
+    args = (psi, t)
+    kw = dict(quality=q, anchor=anchor if anchored else None, mg=mg)
+    got = _unwrap_counted(monkeypatch, False, *args, **kw)
+    want = _unwrap_counted(monkeypatch, True, *args, **kw)
+    _same_unwrap(got, want)
+    assert got[2] == want[2]
+    assert (got[2][0] > 0) == (mg and min(shape) >= U.MG_KERNEL_MIN)
+    c = got[3]
+    assert c["unwrap.calls"] == 1
+    assert c["unwrap.graph_replays"] == 1 + c["unwrap.cg_iters"] \
+        == 1 + got[1]["cg_iters"]
+    assert "unwrap.graph_replays" not in want[3]
+
+
+@pytest.mark.parametrize("shape", [(1024, 1280), (96, 160)])
+def test_cg_graphs_serve_calls_in_turn(dev, monkeypatch, shape):
+    """Two calls through one cached pair of graphs, the second anchored
+    on the first's map, as a re-scan chains them: each equals the eager
+    loop's, the second is no capture, and the first's map, the second's
+    anchor, is left as it was."""
+    t, psi, q, anchor = _box_scene(dev, *shape, seed=2)
+    _, psi2, q2, _ = _box_scene(dev, *shape, seed=3)
+    first = _unwrap_counted(monkeypatch, False, psi, t, quality=q,
+                            anchor=anchor)
+    kept = first[0].clone()
+    second = _unwrap_counted(monkeypatch, False, psi2, t, quality=q2,
+                             anchor=first[0])
+    assert "unwrap.graph_captures" not in second[3]
+    assert torch.equal(_bits(first[0]), _bits(kept))
+    _same_unwrap(first, _unwrap_counted(monkeypatch, True, psi, t,
+                                        quality=q, anchor=anchor))
+    _same_unwrap(second, _unwrap_counted(monkeypatch, True, psi2, t,
+                                         quality=q2, anchor=kept))
+    assert not torch.equal(first[0], second[0])
 
 
 @pytest.mark.parametrize("shape", SHAPES)

@@ -5,7 +5,8 @@ a moved scene's previous map; the reference's fringe orders against a
 converged least-squares solve; the ``rescan`` driver's runs, sound and
 with the decode broken underneath; the bfloat16 control; the K-cycle's
 level visits that ``mgsmooth_roofline`` counts; and the unwrap's spans
-and counters under a profiler and without one."""
+and counters under a profiler and without one, and no CUDA graph on the
+CPU."""
 
 import dataclasses
 import json
@@ -173,15 +174,19 @@ def run(monkeypatch):
     monkeypatch.setattr(harness, "forbidden_modules", lambda modules=None: [
         m for m in real(modules) if m not in before])
 
-    def run(d, seed=4242, trace=False):
+    def run(d, seed=4242, trace=False, seconds=0.4):
         b = harness.load_json(os.path.join(d, "BENCHMARK.json"))
-        return harness.run_cell(b, d, CELL, seed, 0.4, trace, "cpu",
+        return harness.run_cell(b, d, CELL, seed, seconds, trace, "cpu",
                                 time.perf_counter())
     return run
 
 
 def test_a_rescan_run_is_correct(tiny, run):
-    out = run(tiny, seed=2**31 + 977)
+    # The window counts the maps started before it closes. A tiny map
+    # takes ~50 ms alone, but ~350 ms on a host that runs the rest of
+    # the suite beside it: a window of 3 s holds the 4 maps on any host
+    # that takes under 0.75 s a map.
+    out = run(tiny, seed=2**31 + 977, seconds=3.0)
     assert out["correct"] is True, out["checks"]
     assert out["attempted"] >= 4
     c = out["checks"]
@@ -339,6 +344,32 @@ def test_spans_and_counters_of_the_spatial_decode(rig):
     # One read-back a CG iteration and one for the test that ends it.
     assert s["unwrap.wait"]["calls"] == 2 * (info["cg_iters"] + 1)
     assert s["decode.spatial"]["total_ns"] >= s["unwrap.wait"]["total_ns"]
+
+
+def test_the_unwrap_on_the_cpu_captures_no_graph(rig, monkeypatch):
+    """A CPU tensor runs the CG launch by launch: no graph is made or
+    cached, and under a profiler the graph counters stay absent."""
+    ren, _, rt = rig
+    surf = SURFACES["plane"]
+    imgs = _phases(ren, surf)
+    psi = plain.decode_phase(imgs, T, torch.float32)
+    q = plain.modulation(imgs, torch.float32)
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA graph for a CPU tensor")
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", refuse)
+    monkeypatch.setattr(U, "_CGGraphs", refuse)
+    cached = U._cg_graphs.cache_info().currsize
+    with torch.profiler.profile(activities=CPU):
+        got, info = U.unwrap_spatial(psi, T, quality=q,
+                                     anchor=_previous_map(ren, surf, rt),
+                                     return_info=True)
+    assert U._cg_graphs.cache_info().currsize == cached
+    c = metrics.counters()
+    assert c == {"unwrap.calls": 1, "unwrap.cg_iters": info["cg_iters"]}
+    assert "unwrap.graph_replays" not in c
+    assert "unwrap.graph_captures" not in c
+    assert info["cg_iters"] >= 1 and bool(torch.isfinite(got).all())
 
 
 NEW = ("spatial.decode_ms", "spatial.host_ms", "unwrap.wait_ms",
