@@ -280,18 +280,24 @@ def stream_frames(state: TrackerState, frames: Iterable[np.ndarray],
     if fetch is None:
         fetch = fetch_z_async
     stager = HostStager(state.z.device)
-    pending = None          # frame f, staged, awaiting its step
-    for frame in frames:
-        staged = stager.put(frame)      # H2D of frame f+1 on the side
-        if pending is not None:
-            state, res = dynamic_step(state, pending.wait(), tables, cfg,
-                                      scale_gradient, subpixel, robust)
-            yield state, fetch(res)
-        pending = staged
-    if pending is not None:
-        state, res = dynamic_step(state, pending.wait(), tables, cfg,
+    for staged in one_ahead(stager.put(frame) for frame in frames):
+        state, res = dynamic_step(state, staged.wait(), tables, cfg,
                                   scale_gradient, subpixel, robust)
         yield state, fetch(res)
+
+
+def one_ahead(items: Iterable) -> Iterator:
+    """``items`` (none of them None) handed on one behind: each only once
+    the next has been made, the last at the end. Over a generator of
+    ``HostStager.put`` calls, frame f+1's copy is started before frame f
+    is handed on to its step."""
+    pending = None
+    for item in items:
+        if pending is not None:
+            yield pending
+        pending = item
+    if pending is not None:
+        yield pending
 
 
 def _cuda_device(device) -> torch.device:
@@ -674,13 +680,8 @@ def measure_overlap(state: TrackerState, frames: List[np.ndarray],
     st = _copy(state)
     _sync(device)
     t0 = time.perf_counter()
-    pending = None
-    for f in frames:
-        staged = stager.put(f)
-        if pending is not None:
-            st, _ = step(st, pending.wait())
-        pending = staged
-    st, _ = step(st, pending.wait())
+    for staged in one_ahead(stager.put(f) for f in frames):
+        st, _ = step(st, staged.wait())
     _sync(device)
     pipelined_s = (time.perf_counter() - t0) / n
 

@@ -5,10 +5,16 @@ a failing cloud writer, and the CLI's sphere dataset. Bars against
 slc_tpu: frame records and fault frames identical, valid fractions
 within 1e-3, depth maps within the locked step's z bar 4e-3, a run's
 median depth error within the per-step z bar of its tracker (locked
-4e-3, open loop 2e-3), the frame-0 decode's P 2e-3 and z 8e-3."""
+4e-3, open loop 2e-3), the frame-0 decode's P 2e-3 and z 8e-3.
+
+The runner's public set-up (``decode_absolute``, ``lock_setup``,
+``start_tracker``) is held bit-equal to the pipeline calls it wraps and
+to what ``run_replay`` itself logs and tracks with on the same dataset."""
 
 import json
 import os
+import shutil
+import warnings
 
 import numpy as np
 import pytest
@@ -27,13 +33,20 @@ from slc_tpu.pipeline import decode_first_frame as j_decode
 from slc_tpu.runner import run_replay as j_run
 
 from slc_tpu_torch import calib as tcalib
+from slc_tpu_torch import runner as trunner
 from slc_tpu_torch import synth
 from slc_tpu_torch.__main__ import main
-from slc_tpu_torch.config import SystemConfig
+from slc_tpu_torch.config import HeterodyneConfig, SystemConfig
+from slc_tpu_torch.dynamic import init_tracker
 from slc_tpu_torch.io import load_calibration
-from slc_tpu_torch.io.dataset import load_manifest
-from slc_tpu_torch.pipeline import decode_first_frame
-from slc_tpu_torch.runner import run_replay
+from slc_tpu_torch.io.dataset import (ReplayDataset, load_manifest,
+                                      write_manifest)
+from slc_tpu_torch.pipeline import (decode_first_frame,
+                                    decode_heterodyne_frame,
+                                    decode_spatial_frame)
+from slc_tpu_torch.runner import (decode_absolute, lock_setup,
+                                  pattern_group, run_replay, start_tracker,
+                                  upload)
 
 torch.set_num_threads(2)
 
@@ -201,3 +214,181 @@ def test_cli_sphere_dataset_tracks_true_geometry(tmp_path):
             atol=4e-3)
     with open(os.path.join(j_out, "metrics.jsonl")) as f:
         assert sum("frame" in json.loads(line) for line in f) == n
+
+
+# --- the runner's public set-up -------------------------------------
+
+_SYNTH = ["--cam", "96x160", "--pro", "96x640", "--gray-bits", "5"]
+_MAPS = ("x", "y", "z", "proj_u")
+
+
+@pytest.fixture(scope="module")
+def seam_root(tmp_path_factory):
+    """The CLI's sphere dataset with the fringe stack, 3 dynamic frames
+    and the manifest's stripe period 12."""
+    root = str(tmp_path_factory.mktemp("seam") / "ds")
+    assert main(["synth", root, "--frames", "3", "--fringes"] + _SYNTH) == 0
+    return root
+
+
+def _seam_setup(root):
+    ds = ReplayDataset(root, gray_count=2 * CFG.gray_bits,
+                       phase_count=CFG.phase_steps)
+    calib = load_calibration(os.path.join(root, "parameters.yml"))
+    return ds, tcalib.build_tables(calib, CFG.cam_h, CFG.cam_w, "cpu")
+
+
+@pytest.mark.parametrize("mode", ["gray", "heterodyne", "spatial",
+                                  "spatial_anchored"])
+def test_decode_absolute_is_the_pipeline_decode(seam_root, mode):
+    """decode_absolute on pattern_group's uploaded images is bit-equal to
+    the pipeline's own decode of the dataset's images, per mode; the
+    spatial decode with and without an anchor map (the Gray decode's)."""
+    ds, tables = _seam_setup(seam_root)
+    het = HeterodyneConfig(phase_steps=CFG.phase_steps)
+    gray, phase = torch.from_numpy(ds.gray_images()), \
+        torch.from_numpy(ds.phase_images())
+    anchor = None
+    if mode == "gray":
+        want = decode_first_frame(gray, phase, tables, CFG)
+    elif mode == "heterodyne":
+        want = decode_heterodyne_frame(
+            torch.from_numpy(ds.fringe_images(het.num_images)), tables, CFG,
+            het)
+    else:
+        if mode == "spatial_anchored":
+            anchor = decode_first_frame(gray, phase, tables, CFG).proj_u
+        want = decode_spatial_frame(phase, tables, CFG,
+                                    float(CFG.phase_period), anchor=anchor)
+    m = mode.split("_")[0]
+    parts = [upload(a, "cpu") for a in pattern_group(ds, m, het)]
+    got = decode_absolute(parts, m, tables, CFG, het, anchor=anchor)
+    for k in _MAPS:
+        assert torch.equal(getattr(got, k), getattr(want, k)), (mode, k)
+    with pytest.raises(ValueError, match="unknown mode"):
+        decode_absolute(parts, "phase", tables, CFG, het)
+
+
+# (name, manifest's stripe_period as a multiple of the true 12 or None
+# to drop it, the keywords given to run_replay and to lock_setup, the
+# expected period: "nominal", "estimate", a float or None, the window:
+# "suggested" or an int, and the expected warning)
+_LOCK_CASES = [
+    ("off", 1.0, dict(phase_lock=None), None, 9, None),
+    ("auto", 1.0, dict(), "nominal", "suggested", None),
+    ("auto_no_period", None, dict(), None, 9, None),
+    ("forced", 1.0, dict(phase_lock=12.25), "nominal", "suggested",
+     "deviates"),
+    ("window", 1.0, dict(lock_window=15), "nominal", 15, None),
+    ("refine_adopts", 1.05, dict(refine_period=True), "estimate",
+     "suggested", "deviates"),
+    ("refine_refuses", 1.15, dict(refine_period=True), "nominal",
+     "suggested", "validity envelope"),
+]
+
+
+@pytest.mark.parametrize("case", _LOCK_CASES, ids=[c[0] for c in _LOCK_CASES])
+def test_lock_setup_is_run_replays_lock(seam_root, tmp_path, monkeypatch,
+                                        case):
+    """lock_setup gives the period and window that run_replay tracks with
+    and the period_diag summary it logs, with the same warnings (raised
+    at run_replay's caller), for each way of setting the lock."""
+    name, scale, kw, want_period, want_win, want_warn = case
+    root = str(tmp_path / "ds")
+    shutil.copytree(seam_root, root)
+    man = load_manifest(root)
+    if scale is None:
+        del man["stripe_period"]
+    else:
+        man["stripe_period"] = 12.0 * scale
+    write_manifest(root, man)
+
+    seen = []
+    real_step = trunner.dynamic_step
+
+    def recording_step(*args, **kwargs):
+        seen.append((kwargs["phase_lock"], kwargs["lock_win_u"]))
+        return real_step(*args, **kwargs)
+
+    monkeypatch.setattr(trunner, "dynamic_step", recording_step)
+    with warnings.catch_warnings(record=True) as run_w:
+        warnings.simplefilter("always")
+        report = run_replay(root, os.path.join(root, "parameters.yml"),
+                            str(tmp_path / "out"), CFG, device="cpu",
+                            write_clouds=False, **kw)
+    run_diag = [r for r in report.metrics.summaries if r.get("period_diag")]
+    assert len(set(seen)) == 1 and len(seen) >= 2, seen
+
+    ds, tables = _seam_setup(root)
+    het = HeterodyneConfig(phase_steps=CFG.phase_steps)
+    first = decode_absolute([upload(a, "cpu")
+                             for a in pattern_group(ds, "gray", het)],
+                            "gray", tables, CFG, het)
+    with warnings.catch_warnings(record=True) as seam_w:
+        warnings.simplefilter("always")
+        lock = lock_setup(kw.get("phase_lock", "auto"), ds.manifest,
+                          first.proj_u, ds.frame(0), kw.get("lock_window"),
+                          kw.get("refine_period", False))
+
+    assert (lock.period, lock.win_u) == seen[0], (lock, seen)
+    assert ([lock.diag] if lock.diag else []) == run_diag
+    assert ([(str(w.message), w.category) for w in seam_w]
+            == [(str(w.message), w.category) for w in run_w])
+    assert all(w.filename == __file__ for w in run_w), \
+        [w.filename for w in run_w]
+    if want_warn is None:
+        assert not run_w, [str(w.message) for w in run_w]
+    else:
+        assert any(want_warn in str(w.message) for w in run_w), want_warn
+    if want_period is None:
+        assert lock.period is None and lock.diag is None
+    elif want_period == "estimate":
+        assert lock.period == pytest.approx(lock.diag["period_estimated"],
+                                            abs=1e-5)
+        assert lock.period != lock.diag["period_nominal"]
+    else:
+        assert lock.period == lock.diag["period_nominal"] \
+            == float(kw.get("phase_lock", man.get("stripe_period")))
+    if want_win == "suggested":
+        want_win = trunner.suggest_lock_window(first.proj_u,
+                                               lock.diag["period_nominal"])
+    assert lock.win_u == want_win
+    # A frame that cannot be read means no diagnostic, not a failure.
+    if lock.diag is not None:
+        def unreadable():
+            raise IOError("unreadable")
+        again = lock_setup(kw.get("phase_lock", "auto"), ds.manifest,
+                           first.proj_u, unreadable, kw.get("lock_window"),
+                           kw.get("refine_period", False))
+        assert again.diag is None
+        assert again.period == lock.diag["period_nominal"]
+        assert again.win_u == lock.win_u
+
+
+def test_start_tracker_retries_frame0(seam_root):
+    """start_tracker is init_tracker on frame 0, read with up to 30
+    attempts; 30 failed reads raise."""
+    ds, tables = _seam_setup(seam_root)
+    het = HeterodyneConfig(phase_steps=CFG.phase_steps)
+    first = decode_absolute([upload(a, "cpu")
+                             for a in pattern_group(ds, "gray", het)],
+                            "gray", tables, CFG, het)
+    want = init_tracker(torch.from_numpy(ds.frame(0)), first.proj_u,
+                        first.z, CFG, True)
+
+    class Flaky:
+        def __init__(self, fails):
+            self.fails = fails
+
+        def frame(self, i):
+            if self.fails:
+                self.fails -= 1
+                raise IOError("busy")
+            return ds.frame(i)
+
+    got = start_tracker(Flaky(29), first, CFG, True, "cpu")
+    for k in ("proj_u", "strip_w", "strip_b", "z"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    assert got.frame_idx == want.frame_idx
+    with pytest.raises(IOError, match="after 30 attempts"):
+        start_tracker(Flaky(30), first, CFG, True, "cpu")

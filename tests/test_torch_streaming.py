@@ -393,3 +393,25 @@ def test_stager_on_the_cpu_copies_the_frame():
     assert stager._stream is None and one.event is None
     assert int(one.wait().sum()) == 7 * 24
     assert stack.wait().shape == (2, 4, 6) and int(stack.wait().min()) == 7
+
+
+@pytest.mark.parametrize("n", [0, 1, 4])
+def test_one_ahead_makes_the_next_item_first(n):
+    """one_ahead hands every item on, in order, each only after the next
+    has been made (the last at the end): the staging order of the
+    streaming loops and the runner."""
+    events = []
+
+    def made():
+        for i in range(n):
+            events.append(("made", i))
+            yield i
+
+    for i in streaming.one_ahead(made()):
+        events.append(("handed", i))
+    want = [("made", 0)] if n else []
+    for i in range(n):
+        if i + 1 < n:
+            want.append(("made", i + 1))
+        want.append(("handed", i))
+    assert events == want
