@@ -20,7 +20,8 @@ Run from the root of a checkout. In order it:
    the multigrid kernels), at the bars of the CPU parity tests; stripe at
    windows 5, 21 and 63, the multigrid kernels at the three level shapes
    of each shape's chain (1024x1280, 512x640, 256x320; 1000x1270,
-   500x635, 250x318), heterodyne at the reference's 3 frequencies x 4
+   500x635, 250x318) and the coarsest level's kernel (``mg_coarse``,
+   port-only) at each chain's coarsest, 32x40, exactly, heterodyne at the reference's 3 frequencies x 4
    steps and at HET_GENERIC's 3 x 5 (the kernel's generic instance); the
    stripe and step kernels also in fast sub-pixel mode (``frac_bits=7``)
    against the quantizing plain versions; the access-pattern floors
@@ -42,7 +43,9 @@ Run from the root of a checkout. In order it:
    and outputs rotated over COLD_SETS sets (``devtime.rotating``, over
    twice the card's 50 MB L2), beside their L2-resident times;
    ``mg_down`` and ``mg_up`` at each level shape of the 1024x1280 chain,
-   both cold at 1024x1280, heterodyne and bilateral cold, and each
+   both cold at 1024x1280, heterodyne and bilateral cold, ``mg_coarse``
+   at 32x40 (its call and kernels alone, also at one sweep, against the
+   plain visit's 467 launches in a graph of 20 visits), and each
    multigrid kernel's
    time per
    preconditioner call (launches per level x time; per spatial decode in
@@ -94,13 +97,14 @@ Run from the root of a checkout. In order it:
      ``decode_spatial_frame`` call, be decoded (P != 0) on more than 90%
      of the pixels the projector lights, and have P congruent to the true
      map up to one global period offset on 99% of the decoded interior.
-     The multigrid kernels must launch 7 times per preconditioner call,
+     The multigrid kernels must launch 7 times per preconditioner call
+     and ``mg_coarse`` 4 times (the coarsest level's visits),
      ``cg_iters + 1`` calls per decode, ``cg_iters`` taken from a direct
      ``unwrap_spatial(..., return_info=True)`` on the same input. The
      direct decode is then timed through the CG's two CUDA graphs and
      through the eager loop, three calls each in turns after the first
      graph call (the capture), each map bit-equal to the direct one and
-     with those level launches;
+     with those launches;
    - the streaming loop (between the gray and the fringe runs):
      ``--chunk 8`` (K steps as one CUDA graph replay) locked and with
      ``--phase-lock off`` on the gray dataset, every cloud bit-identical
@@ -142,8 +146,9 @@ Run from the root of a checkout. In order it:
    1e-3 off the zero-quality ring, the diagnostic counts printed side by
    side, its wall; at 1000x1270 its replicated 500x635 level runs
    ``mg_down`` and ``mg_up``, whose counts must be 2 per preconditioner
-   call x (cg_iters + 1) (no kernel at 1024x1280, whose levels stay
-   sharded down to 32x40; no kernel on the other tiled paths);
+   call x (cg_iters + 1) (no level kernel at 1024x1280, whose levels stay
+   sharded down to 32x40; no kernel on the other tiled paths), and at
+   both shapes its replicated coarsest level ``mg_coarse``, 4 per call;
    ``tiled_fuse_scans`` on bench.py's parity problem (16 scans, 128
    landmarks) within 1e-4 of ``fusion.fuse_scans`` at the same damping;
    and ``entry.dryrun_multichip`` with one NCCL rank per card of the host;
@@ -263,7 +268,8 @@ FUSE_SCANS = 16
 # Bars (tests/test_torch_*.py): decode P 2e-3, x/y/z 8e-3; strips 1e-5;
 # locked step and standalone lock P 2e-3, z/x 4e-3; open-loop P 2e-4,
 # z 2e-3, x 2e-4; heterodyne P 2e-3, x/y/z 4e-3 off the pinned flips;
-# bilateral 1e-4; multigrid levels 2e-6 on O(1) data; floors exact.
+# bilateral 1e-4; multigrid levels 2e-6 on O(1) data; floors and the
+# coarsest level exact.
 BARS = {
     "grayphase": {"proj_u": 2e-3, "x": 8e-3, "y": 8e-3, "z": 8e-3},
     "stripe": {"strip_w": 1e-5, "strip_b": 1e-5},
@@ -276,6 +282,7 @@ BARS = {
     "bilateral": {"z": 1e-4},
     "mg_down": {"e": 2e-6, "res": 2e-6},
     "mg_up": {"e": 2e-6},
+    "mg_coarse": {"e": 0.0},
     "phase_lock": {"proj_u": 2e-3, "z": 4e-3, "x": 4e-3, "y": 4e-3},
     "halo_block_floor": {"o0": 0.0, "o1": 0.0},
 }
@@ -580,11 +587,17 @@ def parity(dev, errs, inputs):
                     kmg.mg_down_ref(r, wy, wx, dinv), ("e", "res"), errs)
             compare("mg_up", (kmg.mg_up_cuda(e, r, wy, wx, dinv),),
                     (kmg.mg_up_ref(e, r, wy, wx, dinv),), ("e",), errs)
+        ch, cw = mg_shapes(h, w)[-1]
+        coarse = mg_level(dev, ch, cw)
+        log(f"  coarsest multigrid level {ch}x{cw}")
+        cr, _, cwy, cwx, cdinv = coarse
+        compare("mg_coarse", (kmg.mg_coarse_cuda(cr, cwy, cwx, cdinv),),
+                (kmg.mg_coarse_ref(cr, cwy, cwx, cdinv),), ("e",), errs)
         if (h, w) == SHAPES[0]:
             inputs.update(g=g, p=p, tables=tables, cfg=cfg, frame=f1,
                           step_args=args, win=win, fringes=fr, depth=depth,
                           level=levels[(h, w)], levels=levels, pred=pred,
-                          lock_pu=decoded)
+                          lock_pu=decoded, coarse=coarse)
 
 
 def lock_window_parity(pu, errs, what):
@@ -932,6 +945,34 @@ def timing(inputs, card, use_profiler=True):
         bounds["lock_window"] = (None, None)
         line += "; bound not known for this card"
     log(line)
+
+    # The coarsest level (port-only: mg_coarse in csrc/mgsmooth.cu) at
+    # 1024x1280's 32x40: the kernel's call and its launch alone, also at
+    # one sweep (its staging, write-back and launch), against the plain
+    # visit's, whose 467 launches a graph of 20 visits replays. Its bound
+    # is latency, 32 dependent block-wide sweeps; its ~30 KB of traffic
+    # and ~0.5 MFLOP would take ~0.01 ms.
+    cr, _, cwy, cwx, cdinv = inputs["coarse"]
+    ch, cw = cr.shape
+    kern = lambda: kmg.mg_coarse_cuda(cr, cwy, cwx, cdinv)  # noqa: E731
+    plain = lambda: kmg.mg_coarse_ref(cr, cwy, cwx, cdinv)  # noqa: E731
+    t_p1 = dev_ms(plain)
+    t_k = [dev_ms(kern, "mg_coarse") for _ in range(2)]
+    t_p2 = dev_ms(plain)
+    k_dev = alone_ms(kern, "mg_coarse")
+    k_one = alone_ms(lambda: kmg.mg_coarse_cuda(cr, cwy, cwx, cdinv,
+                                                U.MG_OMEGA, 1), "mg_coarse")
+    p_dev = alone_ms(plain)
+    out["mg_coarse"] = ((t_k[0] + t_k[1]) / 2, (t_p1 + t_p2) / 2, k_dev,
+                        p_dev)
+    bounds["mg_coarse"] = (None, "latency")
+    per_sweep = 1e3 * (k_dev - k_one) / (U.MG_COARSE_SWEEPS - 1)
+    log(f"time mg_coarse at {ch}x{cw} ({U.MG_COARSE_SWEEPS} sweeps): call "
+        f"kernel {(t_k[0] + t_k[1]) / 2:.4f} ms ({t_k[0]:.4f}, "
+        f"{t_k[1]:.4f}), plain {(t_p1 + t_p2) / 2:.4f} ms ({t_p1:.4f}, "
+        f"{t_p2:.4f}); kernels alone (graph): kernel {k_dev:.4f} ms, at "
+        f"1 sweep {k_one:.4f} ms, so {per_sweep:.3f} us a sweep; the "
+        f"plain visit {p_dev:.4f} ms; bound: latency")
     return out, expect, bounds, library, level_ms
 
 
@@ -944,6 +985,7 @@ WRAPPERS = {"grayphase": kgray.grayphase_decode_cuda,
             "bilateral": kbil.bilateral_filter_cuda,
             "mg_down": kmg.mg_down_cuda,
             "mg_up": kmg.mg_up_cuda,
+            "mg_coarse": kmg.mg_coarse_cuda,
             "phase_lock": kpl.phase_lock_cuda,
             "halo_block_floor": kfl.halo_block_floor_cuda,
             "lock_window": klw.middle_abs_gradients_cuda}
@@ -1570,15 +1612,33 @@ def fuse_cli_run():
     require(lines > 2 * h * w, f"fused.txt has {lines} lines")
 
 
+def mg_shapes(h, w):
+    """The level shapes of U.build_mg_levels at (h, w), fine to coarse."""
+    shapes = [(h, w)]
+    while min(shapes[-1]) > U.MG_COARSEST:
+        lh, lw = shapes[-1]
+        shapes.append((-(-lh // 2), -(-lw // 2)))
+    return shapes
+
+
+def coarse_visits(h, w):
+    """Launches of mg_coarse per preconditioner call: the K-cycle's
+    visits of the coarsest level (counted as :func:`mg_kernel_visits`
+    counts a level's), 0 where that level is too large for the kernel."""
+    shapes = mg_shapes(h, w)
+    visits, kdepth = 1, U.MG_KDEPTH
+    for i in range(len(shapes) - 1):
+        if kdepth > 0 and len(shapes) - i > 2:
+            visits, kdepth = 2 * visits, kdepth - 1
+    return visits if U.coarse_kernel_fits(*shapes[-1]) else 0
+
+
 def mg_kernel_visits(h, w):
     """Launches of each multigrid kernel per preconditioner call, by
     level: the levels of U.build_mg_levels at least MG_KERNEL_MIN on both
     sides, each once per visit; a K-cycle level visits the next one
     twice. {(h, w): launches}."""
-    shapes = [(h, w)]
-    while min(shapes[-1]) > U.MG_COARSEST:
-        lh, lw = shapes[-1]
-        shapes.append((-(-lh // 2), -(-lw // 2)))
+    shapes = mg_shapes(h, w)
     out, visits, kdepth = {}, 1, U.MG_KDEPTH
     for i, (lh, lw) in enumerate(shapes[:-1]):
         if U.MG_NU == 2 and min(lh, lw) >= U.MG_KERNEL_MIN:
@@ -1649,6 +1709,7 @@ def fringe_runs(dev, launches, level_ms):
 
     out = os.path.join(WORK, "spatial")
     per_cycle = sum(mg_kernel_visits(cfg.cam_h, cfg.cam_w).values())
+    coarse_per_cycle = coarse_visits(cfg.cam_h, cfg.cam_w)
     period = float(cfg.phase_period)
     p0 = torch.from_numpy(scene.phase_images).to(dev)
     info = {}
@@ -1660,8 +1721,10 @@ def fringe_runs(dev, launches, level_ms):
                                   quality=modulation(p0), return_info=True)
         info.update(inf)
         mg = 2 * per_cycle * (inf["cg_iters"] + 1)
-        return {"bilateral": 2, "mg_down": mg, "mg_up": mg, "stripe": 1,
-                "dynamic_step_lock": N_FRINGE_FRAMES, "lock_window": 1}
+        return {"bilateral": 2, "mg_down": mg, "mg_up": mg,
+                "mg_coarse": 2 * coarse_per_cycle * (inf["cg_iters"] + 1),
+                "stripe": 1, "dynamic_step_lock": N_FRINGE_FRAMES,
+                "lock_window": 1}
 
     got = counted_run([ds, "--calib", calib_path, "--out", out, "--mode",
                        "spatial"], spatial_expected,
@@ -1706,7 +1769,8 @@ def fringe_runs(dev, launches, level_ms):
     require(frac > 0.9, f"spatial decode covers only {frac} of the lit px")
     require(cong >= 0.99, f"spatial P congruent on only {cong}")
     spatial_graph_timing(p0, tables, cfg, period, direct,
-                         per_cycle * (info["cg_iters"] + 1))
+                         per_cycle * (info["cg_iters"] + 1),
+                         coarse_per_cycle * (info["cg_iters"] + 1))
 
 
 class EagerCG:
@@ -1720,18 +1784,21 @@ class EagerCG:
         return U._cg_eager(psi, quality, anc, *self.args, max_iters)
 
 
-def spatial_graph_timing(p0, tables, cfg, period, direct, mg_launches):
+def spatial_graph_timing(p0, tables, cfg, period, direct, mg_launches,
+                         coarse_launches):
     """Phase 5b's spatial decode timed through the CG's two CUDA graphs
     and through the eager loop, one after the other: host ms to a
     synchronise, the first graph call after the graphs are dropped
     (their capture, then the replays) and three calls of each path in
     turns. Every map must equal the direct decode's bit for bit, and
-    each path launch ``mg_launches`` of each level kernel a decode."""
+    each path launch ``mg_launches`` of each level kernel and
+    ``coarse_launches`` of mg_coarse a decode."""
     def decode(eager):
         real = U._cg_graphs
         if eager:
             U._cg_graphs = EagerCG
         kmg.mg_down_cuda.launches = kmg.mg_up_cuda.launches = 0
+        kmg.mg_coarse_cuda.launches = 0
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1748,6 +1815,9 @@ def spatial_graph_timing(p0, tables, cfg, period, direct, mg_launches):
         require(got == (mg_launches, mg_launches),
                 f"spatial decode through the {what}: level kernel launches "
                 f"{got}, expected {mg_launches} each")
+        require(kmg.mg_coarse_cuda.launches == coarse_launches,
+                f"spatial decode through the {what}: mg_coarse launches "
+                f"{kmg.mg_coarse_cuda.launches}, expected {coarse_launches}")
         return ms
 
     U._cg_graphs.cache_clear()
@@ -1762,7 +1832,7 @@ def spatial_graph_timing(p0, tables, cfg, period, direct, mg_launches):
         f"{', '.join(f'{v:.2f}' for v in ms[False])}, eager "
         f"{', '.join(f'{v:.2f}' for v in ms[True])}); first graph call {first:.2f} ms, so the "
         f"capture ~{first - graphs:.2f} ms; {mg_launches} launches of each "
-        f"level kernel a decode on both")
+        f"level kernel and {coarse_launches} of mg_coarse a decode on both")
 
 
 def tiled_mg_visits(h, w):
@@ -1770,10 +1840,7 @@ def tiled_mg_visits(h, w):
     ``tiled_unwrap_spatial`` on a 1x1 mesh: the single-device schedule
     (:func:`mg_kernel_visits`) on the replicated levels only, those from
     the first level whose tile has an odd side (or the coarsest) down."""
-    shapes = [(h, w)]
-    while min(shapes[-1]) > U.MG_COARSEST:
-        lh, lw = shapes[-1]
-        shapes.append((-(-lh // 2), -(-lw // 2)))
+    shapes = mg_shapes(h, w)
     n_shard, (th, tw) = 0, (h, w)
     while min(th, tw) > U.MG_COARSEST and th % 2 == 0 and tw % 2 == 0:
         n_shard, th, tw = n_shard + 1, th // 2, tw // 2
@@ -1959,7 +2026,8 @@ def parallel_phase(dev, launches):
                 for k, vs in walls.items()))
 
         # 7c: the spatial unwrap; mg_down / mg_up run on the replicated
-        # levels of at least MG_KERNEL_MIN px.
+        # levels of at least MG_KERNEL_MIN px, mg_coarse on the replicated
+        # coarsest level, visited as in the single-device K-cycle.
         for h, w in SHAPES:
             t, psi, q, anchor, good = unwrap_scene(h, w)
             psi, q, anchor = (torch.from_numpy(a).to(dev)
@@ -1978,7 +2046,9 @@ def parallel_phase(dev, launches):
             (p_t, info_t), got = counted(
                 tiled, lambda out: {
                     "mg_down": per_call * (out[1]["cg_iters"] + 1),
-                    "mg_up": per_call * (out[1]["cg_iters"] + 1)},
+                    "mg_up": per_call * (out[1]["cg_iters"] + 1),
+                    "mg_coarse": coarse_visits(h, w)
+                    * (out[1]["cg_iters"] + 1)},
                 f"tiled_unwrap_spatial {h}x{w}")
             torch.cuda.synchronize()
             wall_t = 1e3 * (time.perf_counter() - t0)
@@ -2442,6 +2512,7 @@ def main(argv=None) -> int:
         "bilateral": ("bilateral.cu", "slc_tpu/pallas/bilateral.py:61"),
         "mg_down": ("mgsmooth.cu", "slc_tpu/pallas/mgsmooth.py:149"),
         "mg_up": ("mgsmooth.cu", "slc_tpu/pallas/mgsmooth.py:178"),
+        "mg_coarse": ("mgsmooth.cu", "port-only"),
         "phase_lock": ("dynamic_step.cu", "slc_tpu/pallas/phaselock.py:216"),
         "halo_block_floor": ("floors.cu", "slc_tpu/pallas/floors.py:25"),
         "lock_window": ("lock_window.cu", "port-only"),

@@ -81,6 +81,8 @@ _SIGNATURES = {
     "slc_mg_down": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _f, _vp],
     # e, r, wy, wx, dinv, out, h, w, omega, stream
     "slc_mg_up": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _f, _vp],
+    # r, wy, wx, dinv, e, h, w, omega, sweeps, stream
+    "slc_mg_coarse": [_vp, _vp, _vp, _vp, _vp, _i, _i, _f, _i, _vp],
     # src (host void*[n]), n, part_bytes, pinned, dev, timed, stream
     "slc_stage_h2d": [_vp, _i, ctypes.c_size_t, _vp, _vp, _i, _vp],
     # pu, h, w, work, out, stream

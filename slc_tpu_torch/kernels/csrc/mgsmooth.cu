@@ -1,5 +1,6 @@
 // One multigrid level of the spatial unwrap's preconditioner, in two
-// kernels on the same 2-D tiles.
+// kernels on the same 2-D tiles; and the K-cycle's coarsest level in one
+// thread block (mg_coarse, at the end).
 //
 // Replaces slc_tpu/pallas/mgsmooth.py:149 mg_down_pallas (nu = 2 damped
 // Jacobi sweeps from e = 0, then the residual) and :178 mg_up_pallas
@@ -661,6 +662,102 @@ int tiles_of(int h, int w, int th) {
 // mg_up's tile shape: 128x40 where that makes a block per SM, else 128x8.
 bool tall_tiles(int h, int w) { return tiles_of(h, w, 40) >= kUpSMs; }
 
+// ---- mg_coarse: the coarsest level ----
+//
+// Replaces no TPU kernel: slc_tpu solves its coarsest level as a
+// lax.fori_loop inside one XLA program (slc_tpu/ops/unwrap_spatial.py:
+// 226-232). In the port's plain path each visit was 467 launches (32
+// sweeps of ~15 elementwise ops: 4 pads of the matvec's edge scatter,
+// subs, muls, adds), 4 visits per preconditioner call at 1024x1280. Here
+// one block owns the whole level: r, omega*dinv and the edge weights are
+// staged in dynamic shared memory once, with sweep 1 from e = 0,
+// (omega*dinv)*r; then sweeps - 1 sweeps e + (omega*dinv) * (r - A e)
+// alternate between two e buffers, a __syncthreads() between sweeps; e
+// goes to device memory once. The bound is latency, not bytes: ~25 KB in
+// and 5 KB out at 32x40, but 32 dependent block-wide sweeps. Shared
+// memory holds 24 B a pixel (coarse_bytes), so the level must fit one
+// block's (ops.unwrap_spatial.MG_COARSE_KERNEL_MAX).
+//
+// Exactness as above: each operation rounded on its own, in the plain
+// association. A neighbour off the image gives its matvec term an exact
+// +0, as the plain path's zero-padded edges do (no zero-weight product).
+constexpr int kCoarseThreads = 1024;
+
+// Shared memory of an (h, w) level: r, omega*dinv and two e buffers of h*w,
+// wy of (h-1)*w, wx of h*(w-1).
+size_t coarse_bytes(int h, int w) {
+  const size_t n = (size_t)h * w;
+  return sizeof(float) *
+         (4 * n + (size_t)(h - 1) * w + (size_t)h * (w - 1));
+}
+
+// One sweep at flat position i = y * w + x, from src.
+__device__ __forceinline__ float coarse_sweep_at(
+    const float* src, const float* rs, const float* os, const float* wys,
+    const float* wxs, int i, int y, int x, int h, int w) {
+  const float pc = src[i];
+  const float dy_up =
+      y > 0 ? __fmul_rn(wys[i - w], __fsub_rn(pc, src[i - w])) : 0.0f;
+  const float dy_dn =
+      y < h - 1 ? __fmul_rn(wys[i], __fsub_rn(src[i + w], pc)) : 0.0f;
+  // wx is (h, w - 1): the edge right of (y, x) is wx[y * (w - 1) + x].
+  const float dx_lt =
+      x > 0 ? __fmul_rn(wxs[i - y - 1], __fsub_rn(pc, src[i - 1])) : 0.0f;
+  const float dx_rt =
+      x < w - 1 ? __fmul_rn(wxs[i - y], __fsub_rn(src[i + 1], pc)) : 0.0f;
+  const float av =
+      __fsub_rn(__fadd_rn(__fsub_rn(dy_up, dy_dn), dx_lt), dx_rt);
+  return __fadd_rn(pc, __fmul_rn(os[i], __fsub_rn(rs[i], av)));
+}
+
+// A thread takes positions threadIdx.x, + blockDim.x, ... of the level,
+// the same ones in every sweep.
+__global__ void __launch_bounds__(kCoarseThreads)
+    mg_coarse_kernel(const float* __restrict__ r,
+                     const float* __restrict__ wy,
+                     const float* __restrict__ wx,
+                     const float* __restrict__ dinv,
+                     float* __restrict__ e_out, int h, int w, float omega,
+                     int sweeps) {
+  extern __shared__ float coarse_smem[];
+  const int n = h * w, nt = blockDim.x, t = threadIdx.x;
+  float* rs = coarse_smem;
+  float* os = rs + n;
+  float* src = os + n;
+  float* dst = src + n;
+  float* wys = dst + n;
+  float* wxs = wys + (h - 1) * w;
+  for (int i = t; i < n; i += nt) {
+    const float rv = r[i], om = __fmul_rn(omega, dinv[i]);
+    rs[i] = rv;
+    os[i] = om;
+    src[i] = __fmul_rn(om, rv);   // sweep 1 from e = 0
+  }
+  for (int i = t; i < (h - 1) * w; i += nt) wys[i] = wy[i];
+  for (int i = t; i < h * (w - 1); i += nt) wxs[i] = wx[i];
+  __syncthreads();
+  // The thread's first position and the step between its positions.
+  const int y0 = t / w, x0 = t - y0 * w;
+  const int sy = nt / w, sx = nt - sy * w;
+  for (int s = 1; s < sweeps; ++s) {
+    int y = y0, x = x0;
+    for (int i = t; i < n; i += nt) {
+      dst[i] = coarse_sweep_at(src, rs, os, wys, wxs, i, y, x, h, w);
+      y += sy;
+      x += sx;
+      if (x >= w) {
+        x -= w;
+        ++y;
+      }
+    }
+    __syncthreads();
+    float* done = dst;
+    dst = src;
+    src = done;
+  }
+  for (int i = t; i < n; i += nt) e_out[i] = src[i];
+}
+
 }  // namespace
 
 // Profiling builds (tools/mg_up_tiles.py) give every level of a kernel the
@@ -699,4 +796,21 @@ extern "C" int slc_mg_up(const float* e, const float* r, const float* wy,
                    : launch_up<8, 1>(e, r, wy, wx, dinv, out, h, w, omega,
                                      stream));
 #endif
+}
+
+// The coarsest level: ``sweeps`` damped-Jacobi sweeps from e = 0 in one
+// block, as few threads as make the same rounds of positions.
+extern "C" int slc_mg_coarse(const float* r, const float* wy, const float* wx,
+                             const float* dinv, float* e, int h, int w,
+                             float omega, int sweeps, cudaStream_t stream) {
+  if (h < 1 || w < 1) return (int)cudaErrorInvalidValue;
+  const size_t bytes = coarse_bytes(h, w);
+  const cudaError_t err = fit_smem(mg_coarse_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int n = h * w;
+  const int rounds = (n + kCoarseThreads - 1) / kCoarseThreads;
+  const int threads = ((n + rounds - 1) / rounds + 31) / 32 * 32;
+  mg_coarse_kernel<<<1, threads, bytes, stream>>>(r, wy, wx, dinv, e, h, w,
+                                                  omega, sweeps);
+  return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 """One multigrid level of the spatial unwrap's preconditioner: the
 descent (``mg_down``) and the ascent (``mg_up``) of ops.unwrap_spatial's
-``vcycle`` with nu = 2.
+``vcycle`` with nu = 2; and its coarsest level (``mg_coarse``).
 
 Source note. Replaces slc_tpu/pallas/mgsmooth.py:149 ``mg_down_pallas``
 and :178 ``mg_up_pallas``. The CUDA kernels (csrc/mgsmooth.cu) work on
@@ -17,10 +17,22 @@ wy, wx, dinv in, e out) and is bound by it; the plain versions stream
 ~25 full-image maps per level. The kernels round every operation on its
 own, in the plain path's association, so they match it bit for bit.
 
-``mg_down`` and ``mg_up`` dispatch on the device of ``r``: CPU tensors
-take the plain PyTorch version, CUDA tensors the kernel (or it raises).
-The caller, ``vcycle``, sends them only levels with min(h, w) >= 256;
-smaller levels run the plain ops on any device.
+``mg_coarse`` is the port's own: it replaces no TPU kernel (slc_tpu
+runs the coarsest level's sweeps as a ``lax.fori_loop`` in one XLA
+program, slc_tpu/ops/unwrap_spatial.py:226-232). The plain version is
+467 launches a visit (32 sweeps), 4 visits a preconditioner call at
+1024x1280; the kernel is one launch, one thread block holding the level
+in shared memory for all its sweeps (csrc/mgsmooth.cu). Its bound is
+latency, 32 dependent block-wide sweeps, not its ~30 KB of traffic. It
+rounds as the plain version does, so it matches it bit for bit.
+
+``mg_down``, ``mg_up`` and ``mg_coarse`` dispatch on the device of ``r``:
+CPU tensors take the plain PyTorch version, CUDA tensors the kernel (or
+it raises). The caller, ``vcycle``, sends ``mg_down`` and ``mg_up`` only
+levels with min(h, w) >= 256, smaller levels running the plain ops on
+any device; and ``mg_coarse`` only coarsest levels that one block holds
+(``ops.unwrap_spatial.coarse_kernel_fits``), a larger one running
+``mg_coarse_ref``.
 """
 
 from __future__ import annotations
@@ -31,7 +43,8 @@ import torch
 
 from slc_tpu_torch import metrics
 from slc_tpu_torch.kernels import _build
-from slc_tpu_torch.ops.unwrap_spatial import MG_OMEGA, _matvec
+from slc_tpu_torch.ops.unwrap_spatial import (MG_COARSE_SWEEPS, MG_OMEGA,
+                                              _matvec, coarse_kernel_fits)
 
 
 def mg_down_ref(r: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor,
@@ -51,6 +64,17 @@ def mg_up_ref(e: torch.Tensor, r: torch.Tensor, wy: torch.Tensor,
     """Plain PyTorch version: two damped-Jacobi post-smooths
     (slc_tpu/ops/unwrap_spatial.py:261-262)."""
     for _ in range(2):
+        e = e + omega * dinv * (r - _matvec(e, wy, wx))
+    return e
+
+
+def mg_coarse_ref(r: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor,
+                  dinv: torch.Tensor, omega: float = MG_OMEGA,
+                  sweeps: int = MG_COARSE_SWEEPS) -> torch.Tensor:
+    """Plain PyTorch version: ``sweeps`` damped-Jacobi sweeps from e = 0
+    on the coarsest level (slc_tpu/ops/unwrap_spatial.py:226-232)."""
+    e = omega * dinv * r              # first Jacobi sweep from e=0
+    for _ in range(sweeps - 1):
         e = e + omega * dinv * (r - _matvec(e, wy, wx))
     return e
 
@@ -107,6 +131,29 @@ def mg_up_cuda(e: torch.Tensor, r: torch.Tensor, wy: torch.Tensor,
 mg_up_cuda.launches = 0
 
 
+def mg_coarse_cuda(r: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor,
+                   dinv: torch.Tensor, omega: float = MG_OMEGA,
+                   sweeps: int = MG_COARSE_SWEEPS) -> torch.Tensor:
+    """The hand-written coarsest-level kernel; shapes as
+    :func:`mg_down_cuda`, the level no larger than
+    ``coarse_kernel_fits`` admits (else ValueError); its host work
+    before the launch is ``kernel.prep``."""
+    with metrics.span("kernel.prep"):
+        h, w = _require_level(r, wy, wx, dinv)
+        if not coarse_kernel_fits(h, w):
+            raise ValueError(f"mg_coarse: a {h}x{w} level does not fit one "
+                             f"thread block")
+        e = torch.empty_like(r)
+    _build.launch("slc_mg_coarse", r.device, r.data_ptr(), wy.data_ptr(),
+                  wx.data_ptr(), dinv.data_ptr(), e.data_ptr(), h, w,
+                  float(omega), int(sweeps))
+    mg_coarse_cuda.launches += 1
+    return e
+
+
+mg_coarse_cuda.launches = 0
+
+
 def mg_down(r, wy, wx, dinv, omega: float = MG_OMEGA):
     """Level descent: CPU tensors take the plain version, anything else
     the kernel."""
@@ -121,3 +168,12 @@ def mg_up(e, r, wy, wx, dinv, omega: float = MG_OMEGA):
     if r.device.type == "cpu":
         return mg_up_ref(e, r, wy, wx, dinv, omega)
     return mg_up_cuda(e, r, wy, wx, dinv, omega)
+
+
+def mg_coarse(r, wy, wx, dinv, omega: float = MG_OMEGA,
+              sweeps: int = MG_COARSE_SWEEPS):
+    """Coarsest level: CPU tensors take the plain version, anything else
+    the kernel."""
+    if r.device.type == "cpu":
+        return mg_coarse_ref(r, wy, wx, dinv, omega, sweeps)
+    return mg_coarse_cuda(r, wy, wx, dinv, omega, sweeps)

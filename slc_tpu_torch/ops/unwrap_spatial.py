@@ -29,7 +29,10 @@ Differences from slc_tpu, by design:
 - Levels with ``min(h, w) >= MG_KERNEL_MIN`` run their descent and
   ascent through ``kernels.mgsmooth`` (the hand-written CUDA kernels on a
   CUDA tensor, the same ops as below on the CPU), slc_tpu's own level
-  rule (unwrap_spatial.py:240).
+  rule (unwrap_spatial.py:240). The coarsest level's 32 sweeps, a
+  ``fori_loop`` in slc_tpu, run as one launch of ``mgsmooth.mg_coarse``
+  on a CUDA tensor where the level fits one thread block
+  (:func:`coarse_kernel_fits`), else as the plain ops.
 - torch sums in another order than XLA, so the CG iteration count may
   differ from slc_tpu's by one; the congruence snap gives the same fringe
   orders.
@@ -105,6 +108,16 @@ MG_KDEPTH = 2
 MG_OVERCORR = 2.0
 #: Levels at least this large on both sides run through kernels.mgsmooth.
 MG_KERNEL_MIN = 256
+#: Coarsest levels of at most this many pixels run through
+#: kernels.mgsmooth.mg_coarse: one thread block holds the level in shared
+#: memory at 24 B a pixel, 192 KiB here of an H100's 227 KiB.
+MG_COARSE_KERNEL_MAX = 8192
+
+
+def coarse_kernel_fits(h: int, w: int) -> bool:
+    """Whether an (h, w) coarsest level takes the coarse kernel (on a
+    CUDA tensor; the CPU takes the plain ops whatever the shape)."""
+    return h * w <= MG_COARSE_KERNEL_MAX
 
 
 def lane_pair_sum(a: torch.Tensor) -> torch.Tensor:
@@ -165,15 +178,15 @@ def vcycle(r: torch.Tensor, levels: list, nu: int = MG_NU,
     coarse-grid correction, damped-Jacobi post-smooth. The correction at
     the first ``kdepth`` coarse levels is a K-cycle (:func:`_fcg2`);
     below that, plain V recursion with the over-correction factor."""
+    from slc_tpu_torch.kernels import mgsmooth
     wy, wx, dinv, (h, w) = levels[0]
     if len(levels) == 1:
-        e = omega * dinv * r              # first Jacobi sweep from e=0
-        for _ in range(coarse_sweeps - 1):
-            e = e + omega * dinv * (r - _matvec(e, wy, wx))
-        return e
+        vcycle.coarse_visits += 1
+        coarse = (mgsmooth.mg_coarse if coarse_kernel_fits(h, w)
+                  else mgsmooth.mg_coarse_ref)
+        return coarse(r, wy, wx, dinv, omega, coarse_sweeps)
     fused = nu == 2 and min(h, w) >= MG_KERNEL_MIN
     if fused:
-        from slc_tpu_torch.kernels import mgsmooth
         e, res = mgsmooth.mg_down(r, wy, wx, dinv, omega)
         rc = restrict2(res)
     else:
@@ -192,6 +205,11 @@ def vcycle(r: torch.Tensor, levels: list, nu: int = MG_NU,
     for _ in range(nu):
         e = e + omega * dinv * (r - _matvec(e, wy, wx))
     return e
+
+
+#: The coarsest-level visits of :func:`vcycle` in this process, kernel or
+#: plain; CUDA graph replays add those their graph holds.
+vcycle.coarse_visits = 0
 
 
 def _fcg2(b: torch.Tensor, levels: list, nu: int, omega: float,
@@ -322,16 +340,33 @@ def _above(go: torch.Tensor) -> bool:
         return bool(go)
 
 
+def _coarse_counts() -> Tuple[int, int]:
+    """vcycle's coarsest visits and the coarse kernel's launches so
+    far."""
+    from slc_tpu_torch.kernels import mgsmooth
+    return vcycle.coarse_visits, mgsmooth.mg_coarse_cuda.launches
+
+
+def _count_coarse(visits: int, kernel: int) -> None:
+    """The counters ``unwrap.coarse_visits`` and ``unwrap.coarse_kernel``
+    (the visits that were a launch of the coarse kernel)."""
+    metrics.count("unwrap.coarse_visits", visits)
+    metrics.count("unwrap.coarse_kernel", kernel)
+
+
 def _cg_eager(psi: torch.Tensor, quality: torch.Tensor, anc: torch.Tensor,
               period: float, tol: float, mg: bool, max_iters: int
               ) -> Tuple[_CG, int]:
     """The CG loop launch by launch: the final state and the iteration
     count. Every read-back is one stopping test."""
+    visits, kernel = _coarse_counts()
     st = _cg_start(psi, quality, anc, period, tol, mg)
     iters = 0
     while iters < max_iters and _above(st.go):
         st = _cg_iterate(st, tol)
         iters += 1
+    now = _coarse_counts()
+    _count_coarse(now[0] - visits, now[1] - kernel)
     return st, iters
 
 
@@ -345,21 +380,24 @@ class _CGGraphs:
 
     Before capturing, the kernel library is loaded and the two bodies
     run once eagerly. The two graphs share one memory pool and the
-    state; the launch counts of the level kernels are left as they were
-    and each replay adds what its graph launches. The graphs, their
-    pool and the buffers live as long as this object."""
+    state; the launch counts of the multigrid kernels and vcycle's
+    coarsest visits are left as they were and each replay adds what its
+    graph holds. The graphs, their pool and the buffers live as long as
+    this object."""
 
     def __init__(self, dev: torch.device, h: int, w: int, period: float,
                  tol: float, mg: bool):
         from slc_tpu_torch.kernels import _build, mgsmooth
         self.tol = tol
-        self.kernels = (mgsmooth.mg_down_cuda, mgsmooth.mg_up_cuda)
+        self.kernels = (mgsmooth.mg_down_cuda, mgsmooth.mg_up_cuda,
+                        mgsmooth.mg_coarse_cuda)
         self.psi, self.quality, self.anchor = (
             torch.zeros((h, w), dtype=torch.float32, device=dev)
             for _ in range(3))
         self.dev = dev
         _build.lib()
         before = [k.launches for k in self.kernels]
+        visits = vcycle.coarse_visits
         try:
             with torch.cuda.device(dev):
                 _cg_iterate(self._start_body(period, mg), tol)
@@ -373,6 +411,7 @@ class _CGGraphs:
         finally:
             for k, n in zip(self.kernels, before):
                 k.launches = n
+            vcycle.coarse_visits = visits
 
     def _start_body(self, period: float, mg: bool) -> _CG:
         st = _cg_start(self.psi, self.quality, self.anchor, period,
@@ -387,21 +426,26 @@ class _CGGraphs:
         for name in _MOVING:
             getattr(self.st, name).copy_(getattr(new, name))
 
-    def _capture(self, graph, pool, body) -> list:
-        """Capture ``body`` into ``graph``; the level kernels' launches
-        it holds."""
+    def _capture(self, graph, pool, body) -> Tuple[list, int]:
+        """Capture ``body`` into ``graph``; the multigrid kernels'
+        launches and vcycle's coarsest visits it holds."""
         before = [k.launches for k in self.kernels]
+        visits = vcycle.coarse_visits
         with torch.cuda.graph(graph, pool=pool,
                               capture_error_mode="thread_local"):
             body()
         metrics.count("unwrap.graph_captures")
-        return [k.launches - n for k, n in zip(self.kernels, before)]
+        return ([k.launches - n for k, n in zip(self.kernels, before)],
+                vcycle.coarse_visits - visits)
 
-    def _replay(self, graph, launches) -> None:
+    def _replay(self, graph, held) -> None:
+        launches, visits = held
         graph.replay()
         for k, n in zip(self.kernels, launches):
             k.launches += n
+        vcycle.coarse_visits += visits
         metrics.count("unwrap.graph_replays")
+        _count_coarse(visits, launches[2])
 
     def run(self, psi: torch.Tensor, quality: torch.Tensor,
             anc: torch.Tensor, max_iters: int) -> Tuple[_CG, int]:
@@ -451,7 +495,10 @@ def unwrap_spatial(psi: torch.Tensor, period: float,
     order and read the stopping test back once an iteration.
 
     Under a profiler it counts ``unwrap.calls`` (1 a call),
-    ``unwrap.cg_iters`` (its CG iterations) and, on the graphs,
+    ``unwrap.cg_iters`` (its CG iterations), ``unwrap.coarse_visits``
+    (the K-cycle's coarsest-level visits: with ``mg``, a fixed number a
+    preconditioner call, 1 + ``cg_iters`` calls), ``unwrap.coarse_kernel``
+    (those that were a launch of the coarse kernel) and, on the graphs,
     ``unwrap.graph_replays`` (1 a replay: 1 + ``cg_iters`` a call) and
     ``unwrap.graph_captures`` (2 a capture); it spans ``unwrap.levels``
     (the multigrid hierarchy's enqueue, eager or captured) and

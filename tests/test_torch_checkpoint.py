@@ -175,6 +175,7 @@ def _wrapper_calls():
         "slc_bilateral": lambda: kbil.bilateral_filter_cuda(f),
         "slc_mg_down": lambda: kmg.mg_down_cuda(*lvl),
         "slc_mg_up": lambda: kmg.mg_up_cuda(f, *lvl),
+        "slc_mg_coarse": lambda: kmg.mg_coarse_cuda(*lvl),
         "slc_phase_lock": lambda: kpl.phase_lock_cuda(u8, f, tables,
                                                       period=12.0),
         "slc_halo_block_floor_u8": lambda: kfl.halo_block_floor_cuda(u8),
@@ -184,7 +185,8 @@ def _wrapper_calls():
 @pytest.mark.parametrize("entry", [
     "slc_bilateral", "slc_dynamic_step", "slc_dynamic_step_lock",
     "slc_grayphase", "slc_halo_block_floor_u8", "slc_heterodyne",
-    "slc_mg_down", "slc_mg_up", "slc_phase_lock", "slc_stripe"])
+    "slc_mg_coarse", "slc_mg_down", "slc_mg_up", "slc_phase_lock",
+    "slc_stripe"])
 def test_every_wrapper_launches_under_the_guard(guarded, monkeypatch,
                                                 entry):
     """With the CUDA-only input checks lifted, each wrapper's one C call

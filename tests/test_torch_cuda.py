@@ -3,10 +3,14 @@ the CPU tests' small shapes (96x160 and a ragged 90x150; the track
 launch also at 1000x1270, the heterodyne decode at 97x157 and at 3 x 5
 steps, the bilateral filter at 97x157, 1x1280 and 1024x1 and with 50%
 holes, the multigrid kernels at 97x201 and at the level shapes of both
-of chip_smoke.py's chains, the floors at widths 1270-1280; the spatial
-unwrap's CG through its two CUDA graphs against the eager loop, bit for
-bit, at 1024x1280, 1000x1270 and 96x160, and two calls in turn through
-one pair of graphs; the preview
+of chip_smoke.py's chains, the floors at widths 1270-1280; the coarsest
+level's kernel bit for bit at the coarsest levels of 1024x1280 and
+96x160, ragged, one-row, one-column, the largest the routing admits and
+with a zero-weight row, and a level above the rule on the plain path;
+the spatial unwrap's CG through its two CUDA graphs against the eager
+loop, bit for bit, at 1024x1280, 1000x1270 and 96x160, with the coarse
+kernel's launches and counters, the same maps as the coarse route forced
+plain, and two calls in turn through one pair of graphs; the preview
 render through the bilateral kernel and multi-scan registration on the
 card against the CPU, which has no kernel of its own; K steps as one
 CUDA graph against the steps one by one, bit for bit, directly and
@@ -199,6 +203,52 @@ def test_mg_level_kernels(dev, shape):
            [kmg.mg_up_ref(e, r, wy, wx, dinv)], 2e-6)
 
 
+@pytest.mark.parametrize("shape,zero_row", [
+    ((32, 40), None), ((24, 40), None), ((17, 29), None), ((1, 32), None),
+    ((32, 1), None), ((64, 128), None), ((32, 40), 7)])
+def test_mg_coarse_kernel(dev, shape, zero_row):
+    """The coarsest level's kernel is the plain sweeps bit for bit: at
+    the coarsest levels of 1024x1280 (32x40) and 96x160 (24x40), ragged,
+    one row, one column, the largest level the routing admits (64x128,
+    MG_COARSE_KERNEL_MAX px) and with a row of zero edge weights."""
+    h, w = shape
+    assert U.coarse_kernel_fits(h, w)
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.uniform(0.1, 1.0, shape).astype(np.float32))
+    wy, wx = U.edge_weights(q.to(dev))
+    if zero_row is not None:
+        wy[zero_row] = 0.0
+        wx[zero_row] = 0.0
+    dinv = 1.0 / U._diag(wy, wx)
+    r = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(dev)
+    kmg.mg_coarse_cuda.launches = 0
+    got = kmg.mg_coarse_cuda(r, wy, wx, dinv)
+    assert kmg.mg_coarse_cuda.launches == 1
+    assert torch.equal(_bits(got), _bits(kmg.mg_coarse_ref(r, wy, wx, dinv)))
+    assert torch.equal(_bits(kmg.mg_coarse_cuda(r, wy, wx, dinv, 0.8, 5)),
+                       _bits(kmg.mg_coarse_ref(r, wy, wx, dinv, 0.8, 5)))
+
+
+def test_a_coarsest_level_above_the_rule_stays_plain(dev):
+    """A 64x129 level, one column above MG_COARSE_KERNEL_MAX px: vcycle
+    runs the plain sweeps on the card, no launch, and the kernel refuses
+    it."""
+    h, w = 64, 129
+    assert not U.coarse_kernel_fits(h, w)
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.uniform(0.1, 1.0, (h, w)).astype(np.float32))
+    wy, wx = U.edge_weights(q.to(dev))
+    dinv = 1.0 / U._diag(wy, wx)
+    r = torch.from_numpy(rng.normal(0, 1, (h, w)).astype(np.float32)
+                         ).to(dev)
+    kmg.mg_coarse_cuda.launches = 0
+    got = U.vcycle(r, [(wy, wx, dinv, (h, w))])
+    assert kmg.mg_coarse_cuda.launches == 0
+    assert torch.equal(_bits(got), _bits(kmg.mg_coarse_ref(r, wy, wx, dinv)))
+    with pytest.raises(ValueError, match="does not fit"):
+        kmg.mg_coarse_cuda(r, wy, wx, dinv)
+
+
 def _box_scene(dev, h, w, seed):
     """tests/test_unwrap_spatial.py's box-step scene at (h, w), as
     chip_smoke.py's ``unwrap_scene``: a ramp 5 periods wide and 0.4 px a
@@ -236,10 +286,12 @@ class _EagerCG:
 
 def _unwrap_counted(monkeypatch, eager, *args, **kw):
     """unwrap_spatial(*args, return_info=True, **kw) through the graphs
-    or (``eager``) the eager loop, with the level kernels' launch counts
-    from 0, under a profiler: (P, info, launches, counters)."""
+    or (``eager``) the eager loop, with the launch counts of mg_down,
+    mg_up and mg_coarse from 0, under a profiler: (P, info, launches,
+    counters)."""
     from slc_tpu_torch import metrics
     kmg.mg_down_cuda.launches = kmg.mg_up_cuda.launches = 0
+    kmg.mg_coarse_cuda.launches = 0
     metrics.reset()
     with monkeypatch.context() as m:
         if eager:
@@ -248,7 +300,8 @@ def _unwrap_counted(monkeypatch, eager, *args, **kw):
                 activities=[torch.profiler.ProfilerActivity.CPU]):
             p, info = U.unwrap_spatial(*args, return_info=True, **kw)
     torch.cuda.synchronize()
-    launches = (kmg.mg_down_cuda.launches, kmg.mg_up_cuda.launches)
+    launches = (kmg.mg_down_cuda.launches, kmg.mg_up_cuda.launches,
+                kmg.mg_coarse_cuda.launches)
     counters = metrics.counters()
     metrics.reset()
     return p, info, launches, counters
@@ -270,9 +323,13 @@ def test_cg_graphs_equal_the_eager_loop(dev, monkeypatch, shape, anchored,
                                         mg):
     """The unwrap's CG through its two CUDA graphs gives the eager loop's
     P, iterations and residual bit for bit (the same kernels in the same
-    order); the level kernels' launch counts move as the eager loop's
-    (the capture adds none); and every start and iteration is a replay,
-    ``unwrap.graph_replays`` = ``unwrap.calls`` + ``unwrap.cg_iters``."""
+    order); the multigrid kernels' launch counts move as the eager
+    loop's (the capture adds none), the coarse kernel's once a coarsest
+    visit (4 a preconditioner call at 1024x1280 and 1000x1270, 2 at
+    96x160; 1 + cg_iters calls), which both count as
+    ``unwrap.coarse_kernel`` = ``unwrap.coarse_visits``; and every start
+    and iteration is a replay, ``unwrap.graph_replays`` =
+    ``unwrap.calls`` + ``unwrap.cg_iters``."""
     t, psi, q, anchor = _box_scene(dev, *shape, seed=1)
     args = (psi, t)
     kw = dict(quality=q, anchor=anchor if anchored else None, mg=mg)
@@ -281,11 +338,44 @@ def test_cg_graphs_equal_the_eager_loop(dev, monkeypatch, shape, anchored,
     _same_unwrap(got, want)
     assert got[2] == want[2]
     assert (got[2][0] > 0) == (mg and min(shape) >= U.MG_KERNEL_MIN)
+    visits = COARSE_VISITS[shape] * (1 + got[1]["cg_iters"]) if mg else 0
+    assert got[2][2] == visits
+    for run in (got, want):
+        assert run[3]["unwrap.coarse_kernel"] \
+            == run[3]["unwrap.coarse_visits"] == visits
     c = got[3]
     assert c["unwrap.calls"] == 1
     assert c["unwrap.graph_replays"] == 1 + c["unwrap.cg_iters"] \
         == 1 + got[1]["cg_iters"]
     assert "unwrap.graph_replays" not in want[3]
+
+
+#: The K-cycle's coarsest visits a preconditioner call: 4 where the
+#: hierarchy reaches four levels below the top, 2 at 96x160 (96x160,
+#: 48x80, 24x40).
+COARSE_VISITS = {(1024, 1280): 4, (1000, 1270): 4, (96, 160): 2}
+
+
+@pytest.mark.parametrize("anchored", [False, True],
+                         ids=["unanchored", "anchored"])
+@pytest.mark.parametrize("shape", [(1024, 1280), (1000, 1270), (96, 160)])
+def test_coarse_kernel_keeps_the_plain_routes_map(dev, monkeypatch, shape,
+                                                  anchored):
+    """unwrap_spatial through the graphs with the coarse kernel gives P,
+    cg_iters and rel_residual bit for bit as with the coarse route forced
+    plain (graphs captured anew, with no coarse launch): the map the
+    plain coarse level gave before the kernel."""
+    t, psi, q, anchor = _box_scene(dev, *shape, seed=4)
+    kw = dict(quality=q, anchor=anchor if anchored else None)
+    got = _unwrap_counted(monkeypatch, False, psi, t, **kw)
+    with monkeypatch.context() as m:
+        m.setattr(U, "coarse_kernel_fits", lambda h, w: False)
+        m.setattr(U, "_cg_graphs", lambda *a: U._CGGraphs(*a))
+        plain = _unwrap_counted(monkeypatch, False, psi, t, **kw)
+    _same_unwrap(got, plain)
+    assert got[2][2] == COARSE_VISITS[shape] * (1 + got[1]["cg_iters"])
+    assert plain[2][2] == 0 and plain[3]["unwrap.coarse_kernel"] == 0
+    assert plain[3]["unwrap.coarse_visits"] == got[2][2]
 
 
 @pytest.mark.parametrize("shape", [(1024, 1280), (96, 160)])

@@ -340,7 +340,11 @@ def test_spans_and_counters_of_the_spatial_decode(rig):
     s, c = metrics.span_totals(), metrics.counters()
     assert s["decode.spatial"]["calls"] == 2
     assert s["unwrap.levels"]["calls"] == 2
-    assert c == {"unwrap.calls": 2, "unwrap.cg_iters": 2 * info["cg_iters"]}
+    # Two coarsest visits a preconditioner call at 96x160 (levels 96x160,
+    # 48x80, 24x40), 1 + cg_iters calls a decode; none by the kernel.
+    assert c == {"unwrap.calls": 2, "unwrap.cg_iters": 2 * info["cg_iters"],
+                 "unwrap.coarse_visits": 2 * 2 * (info["cg_iters"] + 1),
+                 "unwrap.coarse_kernel": 0}
     # One read-back a CG iteration and one for the test that ends it.
     assert s["unwrap.wait"]["calls"] == 2 * (info["cg_iters"] + 1)
     assert s["decode.spatial"]["total_ns"] >= s["unwrap.wait"]["total_ns"]
@@ -366,7 +370,9 @@ def test_the_unwrap_on_the_cpu_captures_no_graph(rig, monkeypatch):
                                      return_info=True)
     assert U._cg_graphs.cache_info().currsize == cached
     c = metrics.counters()
-    assert c == {"unwrap.calls": 1, "unwrap.cg_iters": info["cg_iters"]}
+    assert c == {"unwrap.calls": 1, "unwrap.cg_iters": info["cg_iters"],
+                 "unwrap.coarse_visits": 2 * (info["cg_iters"] + 1),
+                 "unwrap.coarse_kernel": 0}
     assert "unwrap.graph_replays" not in c
     assert "unwrap.graph_captures" not in c
     assert info["cg_iters"] >= 1 and bool(torch.isfinite(got).all())
