@@ -33,7 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from slc_tpu_torch import se3
+from slc_tpu_torch import metrics, se3
 from slc_tpu_torch.calib import resolve_device
 
 
@@ -287,13 +287,15 @@ def gn_step_p2l(rot, trans, landmarks, normals, obs, mask,
 
 def _fuse_scans_p2l(obs, mask, normals, rot, trans, landmarks, iters,
                     damping):
-    """:func:`fuse_scans_p2l`, returning (rot, trans, landmarks, info)."""
+    """:func:`fuse_scans_p2l`, returning (rot, trans, landmarks, info);
+    each step adds 1 to the counter ``fusion.gn_steps``."""
     info = torch.zeros((), dtype=torch.int64, device=obs.device)
     for _ in range(iters):
         rot, trans, landmarks, i = _gn_step_p2l(rot, trans, landmarks,
                                                 normals, obs, mask,
                                                 damping)
         info = info + i
+        metrics.count("fusion.gn_steps")
     return rot, trans, landmarks, info
 
 

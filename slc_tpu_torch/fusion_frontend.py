@@ -10,6 +10,12 @@ sampling the scan's depth map, and back-projecting the sampled depth
 (projective, ICP-style association). Alternating associate -> solve
 rounds is projective ICP over all scans jointly. The scans are one batch
 axis of every tensor (slc_tpu maps over them with ``vmap``).
+
+Spans (:mod:`slc_tpu_torch.metrics`, recorded only under a profiler):
+``fusion.register`` (a whole :func:`register_scans`) and, inside it,
+``fusion.associate``, ``fusion.p2l_gn`` and ``fusion.anchor_gauge``;
+counters ``fusion.calls`` and ``fusion.gn_steps`` (in
+:func:`fusion._fuse_scans_p2l`).
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from slc_tpu_torch import cloud, fusion, se3
+from slc_tpu_torch import cloud, fusion, metrics, se3
 from slc_tpu_torch.calib import resolve_device
 from slc_tpu_torch.fusion import highest_precision
 
@@ -49,37 +55,53 @@ def backproject_grid(depth: torch.Tensor, cam_k: torch.Tensor, step: int
 
 
 def grid_points_normals(depth: torch.Tensor, cam_k: torch.Tensor,
-                        step: int
+                        step: int, normal_radius: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(points (..., L, 3), normals (..., L, 3), valid (..., L)) at the
-    sampled grid of (..., H, W) depth maps, normals from the neighbour
-    cross product (cloud.cloud_normals).
+    sampled grid of (..., H, W) depth maps. A depth that is not finite (a
+    decode's 0 / 0) is a hole, as 0 is: its point is the camera centre,
+    so no NaN reaches a landmark, and its residuals are masked to 0.
 
-    slc_tpu builds the whole cloud and its normals and then samples the
-    grid; this computes the same arithmetic at the grid pixels and at
-    their right and down neighbours only (wrapping at the last column
-    and row, as the roll there does)."""
+    ``normal_radius`` 0 is slc_tpu's normal, the neighbour cross product
+    (down - c) x (right - c) (cloud.cloud_normals): slc_tpu builds the
+    whole cloud and its normals and then samples the grid; this computes
+    the same arithmetic at the grid pixels and at their right and down
+    neighbours only (wrapping at the last column and row, as the roll
+    there does). A radius r > 0 departs from slc_tpu: central
+    differences (down - up) x (right - left) between the pixels r away,
+    which leave the point's own depth out. A decoded map's depth error
+    (~0.02 at 1280 columns, where neighbours lie ~0.1 apart) then no
+    longer turns the normal towards the point's own error, which biases
+    every residual and drives the registration away from the true
+    poses. A stencil that leaves the image is masked."""
     h, w = depth.shape[-2:]
     ys, xs = _grid(h, w, step, depth.device)
     yy, xx = ys[:, None], xs[None, :]
-    xr, yd = (xx + 1) % w, (yy + 1) % h
-    z = depth[..., yy, xx]
-    z_r = depth[..., yy, xr]
-    z_d = depth[..., yd, xx]
+    lo, hi = (normal_radius, normal_radius) if normal_radius else (0, 1)
+    xl, xr = (xx - lo) % w, (xx + hi) % w
+    yu, yd = (yy - lo) % h, (yy + hi) % h
+    at = ((yy, xx), (yy, xl), (yy, xr), (yu, xx), (yd, xx))
+    z, z_l, z_r, z_u, z_d = (torch.where(torch.isfinite(d), d, 0.0)
+                             for d in (depth[..., i, j] for i, j in at))
     k = (cam_k[0, 0], cam_k[1, 1], cam_k[0, 2], cam_k[1, 2])
 
     def pts_at(zz, col, row):
         return cloud.pinhole_points(zz, col.float(), row.float(), *k)
 
     c = pts_at(z, xx, yy)
-    n = cloud.unit_normals(c, pts_at(z_r, xr, yy), pts_at(z_d, xx, yd))
-    ok = (z > 0) & (z_r > 0) & (z_d > 0) & (yy < h - 1) & (xx < w - 1)
+    n = torch.linalg.cross(pts_at(z_d, xx, yd) - pts_at(z_u, xx, yu),
+                           pts_at(z_r, xr, yy) - pts_at(z_l, xl, yy),
+                           dim=-1)
+    n = n / torch.linalg.vector_norm(n, dim=-1, keepdim=True).clamp_min(
+        1e-20)
+    ok = ((z > 0) & (z_l > 0) & (z_r > 0) & (z_u > 0) & (z_d > 0)
+          & (yy >= lo) & (xx >= lo) & (yy < h - hi) & (xx < w - hi))
     n = torch.where(ok[..., None], n, 0.0)
     # Depth-discontinuity filter: cross-product normals at occlusion
-    # edges are garbage; drop grid points whose right/down depth step
-    # exceeds 2% of the local depth.
-    edge = (torch.maximum((z_r - z).abs(), (z_d - z).abs())
-            > 0.02 * z.clamp_min(1e-6))
+    # edges are garbage; drop grid points whose depth steps to a
+    # neighbour of the stencil exceed 2% of the local depth.
+    step_z = torch.stack([(q - z).abs() for q in (z_l, z_r, z_u, z_d)])
+    edge = step_z.amax(dim=0) > 0.02 * z.clamp_min(1e-6)
     lead = depth.shape[:-2]
     return (c.reshape(*lead, -1, 3), n.reshape(*lead, -1, 3),
             (ok & ~edge).reshape(*lead, -1))
@@ -126,7 +148,8 @@ def _bilinear(depth: torch.Tensor, x: torch.Tensor, y: torch.Tensor
 @highest_precision
 def associate_projective(depths: torch.Tensor, cam_k: torch.Tensor,
                          rot: torch.Tensor, trans: torch.Tensor,
-                         grid_step: int = 8, max_depth_err: float = 1.0):
+                         grid_step: int = 8, max_depth_err: float = 1.0,
+                         normal_radius: int = 0):
     """Build (obs (S, L, 3), mask (S, L), landmarks (L, 3), normals (L,
     3)) from (S, H, W) depth maps, intrinsics, and current
     world_from_scan poses.
@@ -137,8 +160,10 @@ def associate_projective(depths: torch.Tensor, cam_k: torch.Tensor,
     normals (owner scan's surface normal, rotated to world) are returned
     for the point-to-plane solve. The pose transforms contract against
     3x3 rotations at landmark magnitudes of ~60 scene units, so they run
-    at full float32 precision (fusion.full_f32)."""
-    pts, nrm, valid = grid_points_normals(depths, cam_k, grid_step)
+    at full float32 precision (fusion.full_f32). ``normal_radius``: that
+    of :func:`grid_points_normals`."""
+    pts, nrm, valid = grid_points_normals(depths, cam_k, grid_step,
+                                          normal_radius)
     landmarks = se3.apply(rot, trans[:, None, :], pts).reshape(-1, 3)
     normals = (nrm @ rot.transpose(-1, -2)).reshape(-1, 3)
     valid0 = valid.reshape(-1)
@@ -230,15 +255,17 @@ def anchor_gauge_align(rot: torch.Tensor, trans: torch.Tensor,
 
 @contextlib.contextmanager
 def _timed(timings: Optional[dict], name: str, dev: torch.device):
-    """Add the block's wall time in ms, its device work included, to
-    ``timings[name]``; nothing without ``timings``."""
-    if timings is None:
+    """Mark the block as the span ``fusion.<name>``; and add its wall
+    time in ms, its device work included, to ``timings[name]``; nothing
+    more without ``timings``."""
+    with metrics.span("fusion." + name):
+        if timings is None:
+            yield
+            return
+        t0 = time.perf_counter()
         yield
-        return
-    t0 = time.perf_counter()
-    yield
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     timings[name] = timings.get(name, 0.0) + 1e3 * (time.perf_counter() - t0)
 
 
@@ -246,7 +273,8 @@ def _timed(timings: Optional[dict], name: str, dev: torch.device):
 def register_scans(depths, cam_k, init_rot, init_trans, rounds: int = 4,
                    gn_iters: int = 5, grid_step: int = 8,
                    max_depth_err: float = 1.0, anchor_gauge: bool = True,
-                   device="cuda", timings: Optional[dict] = None
+                   device="cuda", timings: Optional[dict] = None,
+                   normal_radius: int = 0
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Joint multi-scan registration: alternate projective association
     with point-to-plane bundle adjustment (point-to-point slides
@@ -260,30 +288,39 @@ def register_scans(depths, cam_k, init_rot, init_trans, rounds: int = 4,
     (device work included: the device is synchronised after each) is
     summed into it under "associate", "p2l_gn" and "anchor_gauge".
     Returns refined world_from_scan (rot (S,3,3), trans (S,3)) on
-    ``device``; the solves' failure codes are checked once, at the end."""
-    dev = resolve_device(device)
-    depths, cam_k, rot, trans = (
-        a.to(device=dev, dtype=torch.float32) if isinstance(a, torch.Tensor)
-        else torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
-        for a in (depths, cam_k, init_rot, init_trans))
-    info = torch.zeros((), dtype=torch.int64, device=dev)
-    for _ in range(rounds):
-        with _timed(timings, "associate", dev):
-            obs, mask, lm, normals = associate_projective(
-                depths, cam_k, rot, trans, grid_step, max_depth_err)
-        with _timed(timings, "p2l_gn", dev):
-            rot, trans, _, i = fusion._fuse_scans_p2l(
-                obs, mask, normals, rot, trans, lm, gn_iters, 1e-3)
-        info = info + i
-    if anchor_gauge:
-        h, w = depths.shape[1:]
-        g = (h // grid_step) * (w // grid_step)
-        with _timed(timings, "associate", dev):
-            obs, mask, lm, normals = associate_projective(
-                depths, cam_k, rot, trans, grid_step, max_depth_err)
-        with _timed(timings, "anchor_gauge", dev):
-            rot, trans, i = _anchor_gauge_align(rot, trans, obs, mask, lm,
-                                                normals, g)
-        info = info + i
-    fusion.check_info(info, "register_scans")
-    return rot, trans
+    ``device``; the solves' failure codes are checked once, at the end.
+    ``normal_radius``: that of :func:`grid_points_normals` (0,
+    slc_tpu's method, by default). Its host time, that read-back
+    included, is the span ``fusion.register``; it adds 1 to
+    ``fusion.calls``."""
+    with metrics.span("fusion.register"):
+        metrics.count("fusion.calls")
+        dev = resolve_device(device)
+        depths, cam_k, rot, trans = (
+            a.to(device=dev, dtype=torch.float32)
+            if isinstance(a, torch.Tensor)
+            else torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
+            for a in (depths, cam_k, init_rot, init_trans))
+        info = torch.zeros((), dtype=torch.int64, device=dev)
+        for _ in range(rounds):
+            with _timed(timings, "associate", dev):
+                obs, mask, lm, normals = associate_projective(
+                    depths, cam_k, rot, trans, grid_step, max_depth_err,
+                    normal_radius)
+            with _timed(timings, "p2l_gn", dev):
+                rot, trans, _, i = fusion._fuse_scans_p2l(
+                    obs, mask, normals, rot, trans, lm, gn_iters, 1e-3)
+            info = info + i
+        if anchor_gauge:
+            h, w = depths.shape[1:]
+            g = (h // grid_step) * (w // grid_step)
+            with _timed(timings, "associate", dev):
+                obs, mask, lm, normals = associate_projective(
+                    depths, cam_k, rot, trans, grid_step, max_depth_err,
+                    normal_radius)
+            with _timed(timings, "anchor_gauge", dev):
+                rot, trans, i = _anchor_gauge_align(rot, trans, obs, mask,
+                                                    lm, normals, g)
+            info = info + i
+        fusion.check_info(info, "register_scans")
+        return rot, trans
