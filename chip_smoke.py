@@ -8,8 +8,9 @@ Run from the root of a checkout. In order it:
 
 1. requires CUDA and prints the card (``nvidia-smi``), torch and CUDA;
 2. builds the ten CUDA kernels, the lock window's median
-   (``csrc/lock_window.cu``) and the frame stager's staging entry
-   (``csrc/staging.cu``; these two have no TPU counterpart) from
+   (``csrc/lock_window.cu``), the registration's point-to-plane step
+   (``csrc/p2l.cu``) and the frame stager's staging entry
+   (``csrc/staging.cu``; these three have no TPU counterpart) from
    ``slc_tpu_torch/kernels/csrc`` into one library (one nvcc per source,
    all started together), and the
    native host I/O library from ``slc_tpu_torch/io/native/slc_io.cpp``
@@ -123,15 +124,24 @@ Run from the root of a checkout. In order it:
      reference's semantics (P 1e-3, strips exact), ``decode_gray``
      (exact) and ``gray_assisted_merge`` (1e-3) on the card.
 
-6. multi-scan fusion, which has no kernel (plain PyTorch on the card):
+6. multi-scan fusion, plain PyTorch on the card but for the
+   point-to-plane step's kernels (``csrc/p2l.cu``, port-only):
    ``register_scans`` on 16 scans at 1216x1632 (bench.py's config-5
    frontend) must reach ATE < 0.05 and < 0.25 x the initial ATE, lie
    within 2e-3 of the same call on the CPU, and give the same poses bit
    for bit when the caller has set float32 matmul precision "high"; its
-   wall time and its split by stage are printed; then ``python -m
-   slc_tpu_torch fuse`` through ``main()`` on 3 depth files at 1024x1280
-   must meet tests/test_fuse_cli.py's pose bar and write a fused.txt of
-   more than two scans' pixels;
+   wall time and its split by stage are printed; the step at sweep16's
+   shape (16 views at 1024x1280, grid step 16, normal radius 7: L =
+   81,920 landmarks) within 1e-5 of the plain step from the true poses
+   and within 1e-5 / 1e-4 (rotations / translations) of the float64
+   step from the perturbed ones, its kernels alone in a CUDA graph of 20
+   steps beside its bound (one read of obs, mask, landmarks and normals;
+   the design's two passes beside it) and the plain step's call and
+   kernels; then ``python -m slc_tpu_torch fuse`` through ``main()`` on
+   3 depth files at 1024x1280 must meet tests/test_fuse_cli.py's pose
+   bar and write a fused.txt of more than two scans' pixels. The timed
+   16-scan registration and the CLI's must each be 3 launches of the
+   step's kernels a step; their sum is the kernel line's ``launches``;
 7. the tile-parallel paths (``slc_tpu_torch.parallel``) on a world-size-1
    NCCL process group and its 1x1x1 mesh at the reference config, each
    run with the launch counts set to 0 just before and read just after:
@@ -197,7 +207,7 @@ from slc_tpu_torch.__main__ import main as slc_main
 from slc_tpu_torch.calib import build_tables, synthetic_calibration
 from slc_tpu_torch.config import REFERENCE_CONFIG, HeterodyneConfig
 from slc_tpu_torch.dynamic import TrackerState, init_tracker, reanchor
-from slc_tpu_torch.fusion_frontend import register_scans
+from slc_tpu_torch.fusion_frontend import associate_projective, register_scans
 from slc_tpu_torch.io import native as native_io
 from slc_tpu_torch.io.bmp import _read_bmp_numpy, read_bmp
 from slc_tpu_torch.io.dataset import write_replay_dataset
@@ -210,6 +220,7 @@ from slc_tpu_torch.kernels import grayphase as kgray
 from slc_tpu_torch.kernels import heterodyne as khet
 from slc_tpu_torch.kernels import lock_window as klw
 from slc_tpu_torch.kernels import mgsmooth as kmg
+from slc_tpu_torch.kernels import p2l as kp2l
 from slc_tpu_torch.kernels import phaselock as kpl
 from slc_tpu_torch.kernels import staging as kstaging
 from slc_tpu_torch.kernels import stripe as kstripe
@@ -1487,14 +1498,16 @@ def check_depth_and_previews(out, calib):
         f"the host, display scaling, BMP) {wall:.3f} ms host wall")
 
 
-def fusion_problem():
+def fusion_problem(shape=FUSE_SHAPE, cam_f=None):
     """bench.py:453-521's config-5 frontend: 16 depth maps at 1216x1632
-    ray-cast from an orbit about the scene centre (0.006 / 0.025 rad a
-    step), initial poses perturbed from seed 7. Returns (args, kw,
-    (rot0, trans0, rot_gt, trans_gt)) for ``register_scans(*args,
+    (or ``shape``) ray-cast from an orbit about the scene centre (0.006 /
+    0.025 rad a step) through a camera of focal ``cam_f`` px (130 x w /
+    160 by default), initial poses perturbed from seed 7. Returns (args,
+    kw, (rot0, trans0, rot_gt, trans_gt)) for ``register_scans(*args,
     **kw)``."""
-    h, w, s = FUSE_SHAPE + (FUSE_SCANS,)
-    calib = synthetic_calibration(cam_h=h, cam_w=w, cam_f=130.0 * w / 160.0)
+    h, w, s = tuple(shape) + (FUSE_SCANS,)
+    calib = synthetic_calibration(cam_h=h, cam_w=w,
+                                  cam_f=cam_f or 130.0 * w / 160.0)
     center = np.array([0.0, 0.0, 62.0])
 
     def rot_of(v):
@@ -1522,7 +1535,9 @@ def fusion_phase():
     (:func:`fusion_problem`). It must reach ATE < 0.05 and < 0.25 x the
     initial ATE, lie within 2e-3 of the same call on the CPU, and return
     the same poses bit for bit when the caller has set
-    ``torch.set_float32_matmul_precision("high")``."""
+    ``torch.set_float32_matmul_precision("high")``. The timed call must be
+    3 launches of the point-to-plane kernels a step; returns their
+    count."""
     h, w = FUSE_SHAPE
     t0 = time.perf_counter()
     args, kw, (rot0, trans0, rot_gt, trans_gt) = fusion_problem()
@@ -1532,10 +1547,15 @@ def fusion_phase():
 
     register_scans(*args, device="cuda", **kw)          # warm-up
     torch.cuda.synchronize()
+    kp2l.gn_step_p2l_cuda.launches = 0
     t0 = time.perf_counter()
     rot, trans = register_scans(*args, device="cuda", **kw)
     torch.cuda.synchronize()
     wall = 1e3 * (time.perf_counter() - t0)
+    p2l_launches = kp2l.gn_step_p2l_cuda.launches
+    want = kp2l.LAUNCHES_PER_STEP * kw["rounds"] * kw["gn_iters"]
+    require(p2l_launches == want,
+            f"register_scans: {p2l_launches} p2l launches, not {want}")
     stages = {}
     register_scans(*args, device="cuda", timings=stages, **kw)
     f32 = (lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda())
@@ -1546,7 +1566,7 @@ def fusion_phase():
         f"(synchronised, after one warm-up); by stage, each synchronised: "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in stages.items())
         + f" (sum {sum(stages.values()):.1f}); ATE {ate:.5f} from "
-        f"{ate0:.5f}")
+        f"{ate0:.5f}; {p2l_launches} p2l launches")
     require(ate < 0.05 and ate < 0.25 * ate0,
             f"fusion ATE {ate} (initial {ate0}) misses < 0.05 and < 0.25x")
 
@@ -1569,13 +1589,129 @@ def fusion_phase():
     log(f"fusion: with float32 matmul precision 'high' set by the caller "
         f"the poses are {'bit-identical' if same else 'DIFFERENT'}")
     require(same, "register_scans depends on the caller's TF32 setting")
+    return p2l_launches
+
+
+def p2l_phase():
+    """Phase 6, after 6a: the point-to-plane step's kernels (``csrc/p2l.cu``) at
+    sweep16's shape: 16 views at 1024x1280 through the rig's 600-px
+    camera, associated at grid step 16 and normal radius 7 (L = 81,920).
+    The kernel step must lie within 1e-5 of the plain step (run plain on
+    the card through an identity ``reduce_fn``) from the true poses, as
+    tests/test_torch_cuda.py holds it, and be 3 launches. From the
+    perturbed poses, where the step is large (printed), it must lie within
+    1e-5 on rotation entries and 1e-4 on translation components of the
+    plain step evaluated in float64, as the card tests hold it. Then, from
+    those poses: the kernels alone (20 steps in one CUDA graph), the
+    kernel step's call and the plain step's call (CUDA events), the plain
+    step's kernels (the profiler's records, where it records them), and
+    the bound: one read from device memory of obs and mask (16 B a pair)
+    and the landmarks and normals (24 B a landmark). The kernels' design
+    reads them twice, once a pass, and pass 2's obs and mask may come
+    from the 50 MB L2; the two-pass figure is printed beside it. Returns
+    the kernel's line of the JSON summary, whose ``launches`` the caller
+    fills from the main path's runs."""
+    dev = torch.device("cuda", 0)
+    args, _, (rot0, trans0, rot_gt, trans_gt) = fusion_problem(
+        (1024, 1280), 600.0)
+    depths, cam_k = (torch.from_numpy(a).to(dev) for a in args[:2])
+    f32 = (lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev))
+
+    def inputs(rot, trans):
+        rot, trans = f32(rot), f32(trans)
+        obs, mask, lm, nrm = associate_projective(depths, cam_k, rot, trans,
+                                                  16, 2.0, 7)
+        return rot, trans, lm, nrm, obs, mask
+
+    def plain(*a, dtype=torch.float32):
+        with fusion.full_f32():
+            return fusion._gn_step_p2l(*(t.to(dtype) for t in a), 1e-3,
+                                       reduce_fn=lambda x: x)
+
+    exact = inputs(rot_gt, trans_gt)
+    kp2l.gn_step_p2l_cuda.launches = 0
+    got = fusion._gn_step_p2l(*exact, 1e-3)
+    require(kp2l.gn_step_p2l_cuda.launches == kp2l.LAUNCHES_PER_STEP,
+            f"p2l step: {kp2l.gn_step_p2l_cuda.launches} launches")
+    want = plain(*exact)
+    err = max(float((g - w).abs().max()) for g, w in zip(got[:2], want[:2]))
+    require(err <= 1e-5 and int(got[3]) == 0,
+            f"p2l step {err} from the plain step (bar 1e-5), info "
+            f"{int(got[3])}")
+
+    rot, trans, lm, nrm, obs, mask = inputs(rot0, trans0)
+    s, l = mask.shape
+    moved = fusion._gn_step_p2l(rot, trans, lm, nrm, obs, mask, 1e-3)
+    exact64 = plain(rot, trans, lm, nrm, obs, mask, dtype=torch.float64)
+    gap_r, gap_t = (float((g.double() - w).abs().max())
+                    for g, w in zip(moved[:2], exact64[:2]))
+    step_r, step_t = (float((w - a.double()).abs().max())
+                      for w, a in zip(exact64[:2], (rot, trans)))
+    log(f"p2l step from the perturbed poses (the float64 step moves "
+        f"rotation entries by up to {step_r:.3e}, translation components "
+        f"by up to {step_t:.3e}): the kernels' step {gap_r:.3e} and "
+        f"{gap_t:.3e} from it (bars 1e-5 and 1e-4), info {int(moved[3])}")
+    require(gap_r <= 1e-5 and gap_t <= 1e-4 and int(moved[3]) == 0,
+            f"p2l step from the perturbed poses {gap_r}, {gap_t} from the "
+            f"float64 step (bars 1e-5, 1e-4), info {int(moved[3])}")
+    work = kp2l.P2LWork(s, l, dev)
+    work.rot.copy_(rot)
+    work.trans.copy_(trans)
+
+    def kern():
+        kp2l.gn_step_p2l_cuda(work.rot, work.trans, lm, nrm, obs, mask, 1e-3,
+                              work)
+
+    def plain_step():
+        plain(rot, trans, lm, nrm, obs, mask)
+    kp2l.gn_step_p2l_cuda.launches = 0
+    k_call = 1e3 * devtime.device_time_s(kern, TIME_N, None, TIME_WARMUP)
+    k_alone = 1e3 * devtime.graph_time_s(kern, TIME_N, TIME_WARMUP)
+    steps = 2 * (TIME_N + TIME_WARMUP)
+    require(kp2l.gn_step_p2l_cuda.launches
+            == kp2l.LAUNCHES_PER_STEP * steps,
+            f"p2l timing: {kp2l.gn_step_p2l_cuda.launches} launches for "
+            f"{steps} steps")
+    p_call = 1e3 * devtime.device_time_s(plain_step, TIME_N, None,
+                                         TIME_WARMUP)
+    try:
+        p_alone = 1e3 * devtime.device_time_s(plain_step, TIME_N, "",
+                                              TIME_WARMUP)
+    except devtime.ProfilerUnavailable:
+        p_alone = None
+    nbytes = 16 * s * l + 24 * l
+    peak = devtime.HBM_PEAK_GBPS.get(torch.cuda.get_device_name(0))
+    bound = 1e3 * nbytes / (peak * 1e9) if peak else None
+    two_pass = 2 * bound if peak else None
+    log(f"time p2l step at S={s}, L={l} on {card_line()}: kernels alone "
+        f"(graph of {TIME_N} steps) {k_alone:.4f} ms a step, call "
+        f"{k_call:.4f} ms; plain step call {p_call:.4f} ms, its kernels "
+        + (f"{p_alone:.4f} ms" if p_alone is not None else "not measured")
+        + f"; {kp2l.LAUNCHES_PER_STEP} launches a step; bound "
+        + (f"{bound:.4f} ms (one read of {nbytes / 1e6:.1f} MB; the "
+           f"kernels alone at {100.0 * bound / k_alone:.1f}% of it), the "
+           f"design's two passes {two_pass:.4f} ms "
+           f"({100.0 * two_pass / k_alone:.1f}%)" if bound else
+           "not known for this card")
+        + f"; from the true poses {err:.3e} from the plain step")
+    line = {"name": "p2l", "route": "cuda",
+            "source": "slc_tpu_torch/kernels/csrc/p2l.cu",
+            "replaces": "port-only", "launches": None,
+            "max_abs_err": err, "ms": k_call, "plain_ms": p_call,
+            "bound_ms": bound, "bound_by": "bytes" if bound else None,
+            "library_ms": None, "kernel_only_ms": k_alone,
+            "two_pass_bound_ms": two_pass}
+    if p_alone is not None:
+        line["plain_kernel_only_ms"] = p_alone
+    return line
 
 
 def fuse_cli_run():
     """Phase 6b: ``python -m slc_tpu_torch fuse`` through ``main()`` on 3
     depth files at 1024x1280 (tests/test_fuse_cli.py:17-36's motions):
     poses.json must meet that test's bar and fused.txt hold more than two
-    scans' pixels."""
+    scans' pixels, and its registration be 3 launches of the
+    point-to-plane kernels a step. Returns their count."""
     h, w = REFERENCE_CONFIG.cam_h, REFERENCE_CONFIG.cam_w
     calib = synthetic_calibration(cam_h=h, cam_w=w, cam_f=110.0 * w / 128.0)
     cam_k = calib.cam_k.numpy()
@@ -1591,12 +1727,17 @@ def fuse_cli_run():
                  .astype(np.float32), cam_k=cam_k)
         paths.append(p)
     out = os.path.join(WORK, "fused")
+    rounds, gn_iters = 6, 5
+    kp2l.gn_step_p2l_cuda.launches = 0
     t0 = time.perf_counter()
     rc = slc_main(["fuse", *paths, "--out", out, "--device", "cuda",
-                   "--rounds", "6", "--grid-step", "6", "--max-depth-err",
-                   "2.0"])
+                   "--rounds", str(rounds), "--gn-iters", str(gn_iters),
+                   "--grid-step", "6", "--max-depth-err", "2.0"])
     wall = time.perf_counter() - t0
     require(rc == 0, f"fuse exited {rc}")
+    launches = kp2l.gn_step_p2l_cuda.launches
+    want = kp2l.LAUNCHES_PER_STEP * rounds * gn_iters
+    require(launches == want, f"fuse: {launches} p2l launches, not {want}")
     with open(os.path.join(out, "poses.json")) as f:
         poses = json.load(f)["world_from_scan"]
     errs = [float(np.linalg.norm(np.asarray(poses[i]["trans"]) - trans_gt[i]))
@@ -1605,11 +1746,13 @@ def fuse_cli_run():
         lines = sum(1 for _ in f)
     log(f"e2e fuse CLI: 3 scans at {h}x{w}, {wall:.1f} s wall (register, "
         f"poses.json, fused.txt by np.savetxt); translation errors "
-        f"{errs[0]:.4f}, {errs[1]:.4f}; fused.txt {lines} lines")
+        f"{errs[0]:.4f}, {errs[1]:.4f}; fused.txt {lines} lines; "
+        f"{launches} p2l launches")
     for i, e in zip((1, 2), errs):
         require(e < 0.25 * np.linalg.norm(trans_gt[i]) + 0.05,
                 f"fuse scan {i}: translation error {e}")
     require(lines > 2 * h * w, f"fused.txt has {lines} lines")
+    return launches
 
 
 def mg_shapes(h, w):
@@ -2493,8 +2636,9 @@ def main(argv=None) -> int:
         stream_runs(launches, run_errs)
         capture_and_golden(launches)
         fringe_runs(dev, launches, level_ms)
-        fusion_phase()
-        fuse_cli_run()
+        p2l_launches = fusion_phase()
+        p2l_line = p2l_phase()
+        p2l_launches += fuse_cli_run()
         parallel_phase(dev, launches)
         sequence_phase(dev, launches, errs)
         adversarial_phase(dev, launches, errs)
@@ -2536,6 +2680,8 @@ def main(argv=None) -> int:
         plain_alone = times[k["name"]][3]
         if plain_alone is not None:
             k["plain_kernel_only_ms"] = plain_alone
+    p2l_line["launches"] = p2l_launches
+    kernels.append(p2l_line)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

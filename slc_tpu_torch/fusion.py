@@ -18,7 +18,9 @@ landmarks through the Schur complement:
 
 Gauge freedom is fixed by freezing scan 0's pose. Everything is float32
 at full matmul precision (:func:`full_f32`); the work is small dense
-einsums and solves, plain PyTorch on whichever device holds the inputs.
+einsums and solves, plain PyTorch on whichever device holds the inputs,
+but for the point-to-plane step on the card, which is the hand-written
+kernels of :mod:`slc_tpu_torch.kernels.p2l` (:func:`_gn_step_p2l`).
 The solves use the ``_ex`` forms, which do not synchronise with the host:
 the loops add up their ``info`` codes and check them once at the end
 (:func:`check_info`).
@@ -35,6 +37,7 @@ import torch
 
 from slc_tpu_torch import metrics, se3
 from slc_tpu_torch.calib import resolve_device
+from slc_tpu_torch.kernels import p2l as kp2l
 
 
 def synthetic_problem(rng, s: int = 6, l: int = 64, noise: float = 0.0,
@@ -236,12 +239,32 @@ def _gn_terms_p2l(rot, trans, landmarks, normals, obs, mask, center):
     return h_cc, b_c, e
 
 
+def _p2l_kernel_route(obs: torch.Tensor, reduce_fn=None) -> bool:
+    """Whether the point-to-plane step runs as the hand-written kernels:
+    for tensors off the CPU with no shard reduction (the kernels sum over
+    every landmark of the card themselves). Where the tensors are is the
+    only question: it is one algorithm."""
+    return reduce_fn is None and obs.device.type != "cpu"
+
+
 def _gn_step_p2l(rot, trans, landmarks, normals, obs, mask, damping,
                  reduce_fn=None):
     """One point-to-plane step; returns (rot, trans, landmarks, info).
     ``reduce_fn`` sums the centroids and the pose blocks over landmark
     shards (slc_tpu/fusion.py:206-219); the solve is then the same on
-    every shard, and so is its ``info``."""
+    every shard, and so is its ``info``.
+
+    Off the CPU with no ``reduce_fn`` the step is the kernels of
+    :mod:`slc_tpu_torch.kernels.p2l` (or raises; CUDA float32 tensors),
+    with scratch of its own. Elsewhere the plain code below, the kernels'
+    reference."""
+    if _p2l_kernel_route(obs, reduce_fn):
+        work = kp2l.P2LWork(*mask.shape, obs.device)
+        rot, trans = kp2l.gn_step_p2l_cuda(
+            rot.contiguous(), trans.contiguous(), landmarks.contiguous(),
+            normals.contiguous(), obs.contiguous(), mask.contiguous(),
+            damping, work)
+        return rot, trans, landmarks, work.info
     red = reduce_fn if reduce_fn is not None else (lambda x: x)
     pred = torch.einsum("sij,slj->sli", rot, obs) + trans[:, None, :]
     csum = red((pred * mask[..., None]).sum(dim=1))          # (S,3)
@@ -277,8 +300,10 @@ def gn_step_p2l(rot, trans, landmarks, normals, obs, mask,
     ICP therefore treats the associated surface anchors as data; they
     are re-estimated only in the association round. With fixed
     landmarks the pose Hessian is block-diagonal (no Schur coupling).
-    ``reduce_fn`` sums over landmark shards. Returns (rot, trans,
-    landmarks)."""
+    ``reduce_fn`` sums over landmark shards. On the card with no
+    ``reduce_fn`` the step runs as the kernels of
+    :mod:`slc_tpu_torch.kernels.p2l` (:func:`_gn_step_p2l`). Returns (rot,
+    trans, landmarks)."""
     *out, info = _gn_step_p2l(rot, trans, landmarks, normals, obs, mask,
                               damping, reduce_fn)
     check_info(info, "gn_step_p2l")
@@ -288,14 +313,30 @@ def gn_step_p2l(rot, trans, landmarks, normals, obs, mask,
 def _fuse_scans_p2l(obs, mask, normals, rot, trans, landmarks, iters,
                     damping):
     """:func:`fuse_scans_p2l`, returning (rot, trans, landmarks, info);
-    each step adds 1 to the counter ``fusion.gn_steps``."""
-    info = torch.zeros((), dtype=torch.int64, device=obs.device)
+    each step adds 1 to the counter ``fusion.gn_steps`` and, 1 where it
+    ran as the kernels and 0 where it ran plain, to
+    ``fusion.p2l_kernel``. The kernels' scratch is allocated once here,
+    and their steps sum their codes into it."""
+    kernel = _p2l_kernel_route(obs)
+    if kernel:
+        work = kp2l.P2LWork(*mask.shape, obs.device)
+        rot, trans, obs, mask, nrm, lm = (
+            t.contiguous() for t in (rot, trans, obs, mask, normals,
+                                     landmarks))
+        info = work.info
+    else:
+        info = torch.zeros((), dtype=torch.int64, device=obs.device)
     for _ in range(iters):
-        rot, trans, landmarks, i = _gn_step_p2l(rot, trans, landmarks,
-                                                normals, obs, mask,
-                                                damping)
-        info = info + i
+        if kernel:
+            rot, trans = kp2l.gn_step_p2l_cuda(rot, trans, lm, nrm, obs,
+                                               mask, damping, work)
+        else:
+            rot, trans, landmarks, i = _gn_step_p2l(rot, trans, landmarks,
+                                                    normals, obs, mask,
+                                                    damping)
+            info = info + i
         metrics.count("fusion.gn_steps")
+        metrics.count("fusion.p2l_kernel", int(kernel))
     return rot, trans, landmarks, info
 
 

@@ -14,8 +14,9 @@ axis of every tensor (slc_tpu maps over them with ``vmap``).
 Spans (:mod:`slc_tpu_torch.metrics`, recorded only under a profiler):
 ``fusion.register`` (a whole :func:`register_scans`) and, inside it,
 ``fusion.associate``, ``fusion.p2l_gn`` and ``fusion.anchor_gauge``;
-counters ``fusion.calls`` and ``fusion.gn_steps`` (in
-:func:`fusion._fuse_scans_p2l`).
+counters ``fusion.calls``, ``fusion.gn_steps`` and ``fusion.p2l_kernel``
+(the steps that ran as the kernels of :mod:`slc_tpu_torch.kernels.p2l`;
+both in :func:`fusion._fuse_scans_p2l`).
 """
 
 from __future__ import annotations

@@ -87,6 +87,10 @@ _SIGNATURES = {
     "slc_stage_h2d": [_vp, _i, ctypes.c_size_t, _vp, _vp, _i, _vp],
     # pu, h, w, work, out, stream
     "slc_lock_window": [_vp, _i, _i, _vp, _vp, _vp],
+    # obs, mask, landmarks, normals, rot, trans, rot_out, trans_out, part1,
+    # part2, center, info, views, l, blocks, damping, stream
+    "slc_p2l_step": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                     _vp, _i, _i, _i, _f, _vp],
 }
 
 _lock = threading.Lock()

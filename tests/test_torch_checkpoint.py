@@ -7,6 +7,7 @@ error (a fake library and a recording guard stand in for the card)."""
 
 import contextlib
 import os
+import types
 
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ from slc_tpu_torch.kernels import floors as kfl
 from slc_tpu_torch.kernels import grayphase as kgray
 from slc_tpu_torch.kernels import heterodyne as khet
 from slc_tpu_torch.kernels import mgsmooth as kmg
+from slc_tpu_torch.kernels import p2l as kp2l
 from slc_tpu_torch.kernels import phaselock as kpl
 from slc_tpu_torch.kernels import stripe as kstripe
 
@@ -179,14 +181,31 @@ def _wrapper_calls():
         "slc_phase_lock": lambda: kpl.phase_lock_cuda(u8, f, tables,
                                                       period=12.0),
         "slc_halo_block_floor_u8": lambda: kfl.halo_block_floor_cuda(u8),
+        "slc_p2l_step": lambda: kp2l.gn_step_p2l_cuda(
+            torch.zeros((3, 3, 3)), torch.zeros((3, 3)), torch.zeros((8, 3)),
+            torch.zeros((8, 3)), torch.zeros((3, 8, 3)), torch.zeros((3, 8)),
+            1e-3, _cpu_p2l_work(3, 8)),
     }
+
+
+def _cpu_p2l_work(views, landmarks):
+    """A ``P2LWork``'s buffers on the CPU (the class asks the card for its
+    SM count)."""
+    work = types.SimpleNamespace(views=views, landmarks=landmarks, blocks=1)
+    for name, shape in (("part1", (views * kp2l.STATS,)),
+                        ("part2", (views * kp2l.TERMS,)),
+                        ("center", (views, 3)), ("rot", (views, 3, 3)),
+                        ("trans", (views, 3))):
+        setattr(work, name, torch.zeros(shape))
+    work.info = torch.zeros((), dtype=torch.int64)
+    return work
 
 
 @pytest.mark.parametrize("entry", [
     "slc_bilateral", "slc_dynamic_step", "slc_dynamic_step_lock",
     "slc_grayphase", "slc_halo_block_floor_u8", "slc_heterodyne",
-    "slc_mg_coarse", "slc_mg_down", "slc_mg_up", "slc_phase_lock",
-    "slc_stripe"])
+    "slc_mg_coarse", "slc_mg_down", "slc_mg_up", "slc_p2l_step",
+    "slc_phase_lock", "slc_stripe"])
 def test_every_wrapper_launches_under_the_guard(guarded, monkeypatch,
                                                 entry):
     """With the CUDA-only input checks lifted, each wrapper's one C call

@@ -199,7 +199,9 @@ def test_spans_and_counters_of_a_registration():
             _port(depths, cam_k, rot0, trans0)
     spans, c = metrics.span_totals(), metrics.counters()
     rounds, steps = SETTINGS["rounds"], SETTINGS["gn_iters"]
-    assert c == {"fusion.calls": 2, "fusion.gn_steps": 2 * rounds * steps}
+    # The steps ran plain on the CPU: none counts as the kernels'.
+    assert c == {"fusion.calls": 2, "fusion.gn_steps": 2 * rounds * steps,
+                 "fusion.p2l_kernel": 0}
     assert {k: v["calls"] for k, v in spans.items()} == {
         "fusion.register": 2, "fusion.associate": 2 * (rounds + 1),
         "fusion.p2l_gn": 2 * rounds, "fusion.anchor_gauge": 2}
