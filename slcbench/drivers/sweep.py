@@ -28,6 +28,9 @@ against the plain reference's registration (``reference/fusion.py``) of
 the program's own maps from the same initial poses (``fuse_pose_gap``),
 and against the true poses (``fuse_ate_share``: the absolute trajectory
 error relative to view 0, over that of the job's initial poses).
+``fuse_pose_gap``'s limit comes from ``Driver.order_control`` (the
+reference against itself summed in another order) beside the program's
+own readings (``calibrate.py --order-seeds``).
 """
 
 from __future__ import annotations
@@ -242,6 +245,34 @@ class Driver:
         numbers.poses(rot, trans, depths.float(), self.cal["cam_k"], sweep,
                       self.c["fusion"])
         return numbers.result()
+
+    def order_control(self, order=None) -> Dict[str, object]:
+        """The reference against itself with its landmark order permuted,
+        on the first job of each sweep: the maps the reference decodes in
+        float32, registered from the sweep's initial poses once in the
+        reference's order and once with every Gauss-Newton step's (and
+        the anchor gauge's) landmarks permuted, by permutations drawn from
+        the seed (``order``, given, maps a landmark count to its
+        permutation). ``fuse_pose_gap`` is the largest gap between the two
+        registrations, ``gaps`` each sweep's: the spread that any sound
+        float32 implementation of these sums may show, whatever the
+        program does."""
+        if order is None:
+            gen = torch.Generator().manual_seed(self.cell.seed % 2**63)
+
+            def order(n):
+                return torch.randperm(n, generator=gen)
+        t = self._tables()
+        gaps = []
+        for sweep in self.sweeps:
+            depths = torch.stack([self._decode(stack, t)[0]
+                                  for stack in sweep.stacks])
+            args = (depths, self.cal["cam_k"], sweep.rot0, sweep.trans0,
+                    self.c["fusion"])
+            rot, trans = rfusion.register(*args)
+            r_p, t_p = rfusion.register(*args, order=order)
+            gaps.append(rfusion.pose_gap(r_p, t_p, rot, trans))
+        return {"fuse_pose_gap": worst(gaps), "gaps": gaps}
 
 
 class Numbers:

@@ -149,6 +149,7 @@ class Run:
     spans: Dict[str, List[float]]
     trace: Optional[tracemod.Trace]
     hbm_bytes_per_s: Optional[float]
+    wall_s: Optional[float] = None
 
 
 def make_cell(bench: dict, bench_dir: str, workload: str, seed: int,
@@ -246,7 +247,12 @@ def run_cell(bench: dict, bench_dir: str, workload: str, seed: int,
     cell = make_cell(bench, bench_dir, workload, seed, dev, spans)
     drv = make_driver(cell, bench_dir)
     drv.setup()
-    if trace and cuda:
+    # End-to-end metrics read from the device's trace: the untraced
+    # window then runs under a profiler of the device alone.
+    device_e2e = cuda and not trace and any(
+        m["source"] == "device_trace"
+        for m in cell_metrics(bench, workload, False))
+    if (trace or device_e2e) and cuda:
         # The first profiler session of a process may record no kernel
         # while CUPTI starts.
         x = torch.ones(1024, device=dev)
@@ -272,6 +278,13 @@ def run_cell(bench: dict, bench_dir: str, workload: str, seed: int,
             win = drv.window(seconds)
         sync()
         prof.stop()
+    elif device_e2e:
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        prof.start()
+        win = drv.window(seconds)
+        sync()
+        prof.stop()
     else:
         win = drv.window(seconds)
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
@@ -293,7 +306,8 @@ def run_cell(bench: dict, bench_dir: str, workload: str, seed: int,
         device_info.update(busy_s=tr.busy_s, window_s=tr.window_s)
         run = Run(config=cell.config, latencies_s=win.latencies_s,
                   spans=spans.times, trace=tr,
-                  hbm_bytes_per_s=hbm_peak(bench_dir, kind))
+                  hbm_bytes_per_s=hbm_peak(bench_dir, kind),
+                  wall_s=win.wall_s)
         if not tr.saw_device:
             log("trace: the profiler recorded no operation on the device; "
                 "the device metrics read null")
@@ -307,9 +321,19 @@ def run_cell(bench: dict, bench_dir: str, workload: str, seed: int,
                                "idle_gaps": tracemod.top(tr.idle_by_span)}
     else:
         e2e = end_to_end(win, setup_s)
+        run = Run(config=cell.config, latencies_s=win.latencies_s,
+                  spans={}, trace=tracemod.read(prof, whole=True)
+                  if device_e2e else None, hbm_bytes_per_s=None,
+                  wall_s=win.wall_s)
         for m in cell_metrics(bench, workload, False):
-            metrics[m["name"]] = {"value": float(e2e[m["name"]]),
-                                  "unit": m["unit"]}
+            if m["source"] != "device_trace":
+                v = e2e[m["name"]]
+            else:
+                v = load_module(bench_dir, "metrics", m["name"]).read(run)
+            if v is None:
+                log(f"metric {m['name']}: nothing to read")
+            else:
+                metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
 
     # The check runs once the window has closed, the peak is read and
     # the program's state is freed.

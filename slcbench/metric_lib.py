@@ -34,3 +34,12 @@ def roofline_pct(run, kernels: Sequence[str], call_kernel: str,
 def pixels(run) -> int:
     s = run.config["system"]
     return s["cam_h"] * s["cam_w"]
+
+
+def idle_pct(run) -> Optional[float]:
+    """Share of the traced window in which no kernel, copy or memset ran
+    on the card (the union of the profiler's device records)."""
+    tr = run.trace
+    if tr is None or not tr.saw_device or tr.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)

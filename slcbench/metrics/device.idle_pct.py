@@ -1,9 +1,8 @@
 """Share of the traced window in which no kernel, copy or memset ran on
 the card (the union of the profiler's device records)."""
 
+from slcbench.metric_lib import idle_pct
+
 
 def read(run):
-    tr = run.trace
-    if tr is None or not tr.saw_device or tr.window_s <= 0:
-        return None
-    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
+    return idle_pct(run)

@@ -45,7 +45,7 @@ the ``dt``-rounded matrices, the solution rounded back to ``dt``.
 from __future__ import annotations
 
 import contextlib
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -282,15 +282,29 @@ class Singular(RuntimeError):
     """A 6x6 system of the registration could not be solved."""
 
 
+def _reorder(order, obs, mask, lm, nrm, n: int):
+    """The first ``n`` landmarks (of obs, mask, landmarks and normals)
+    in the order ``order(n)`` gives; any after them dropped."""
+    p = order(n).to(lm.device)
+    return obs[:, p], mask[:, p], lm[p], nrm[p]
+
+
 def register(depths: torch.Tensor, cam_k, rot0, trans0, settings: dict,
-             dt=torch.float32, tf32: bool = False
+             dt=torch.float32, tf32: bool = False,
+             order: Optional[Callable[[int], torch.Tensor]] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """world_from_view poses (rot (S, 3, 3), trans (S, 3)) in ``dt`` on the
     device of ``depths`` (S, H, W), from the initial poses, with the
     configuration's ``fusion`` settings (``rounds``, ``gn_iters``,
     ``grid_step``, ``normal_radius``, ``max_depth_err``,
     ``anchor_gauge``). Raises
-    :class:`Singular` if a system was singular."""
+    :class:`Singular` if a system was singular.
+
+    ``order``, given, maps a landmark count n to a permutation of
+    ``range(n)`` (an index tensor): each Gauss-Newton step, and the
+    anchor gauge over view 0's landmarks, then sums its terms in that
+    order. The same float32 operations summed in another order: two
+    such registrations part by float32's own sum-order spread."""
     dev = depths.device
 
     def t(a):
@@ -306,14 +320,18 @@ def register(depths: torch.Tensor, cam_k, rot0, trans0, settings: dict,
             obs, mask, lm, nrm = associate(depths, cam_k, rot, trans, step,
                                            err, ns)
             for _ in range(int(settings["gn_iters"])):
-                rot, trans, i = gn_step(rot, trans, lm, nrm, obs, mask, 1e-3)
+                o, m, x, n = (obs, mask, lm, nrm) if order is None else \
+                    _reorder(order, obs, mask, lm, nrm, lm.shape[0])
+                rot, trans, i = gn_step(rot, trans, x, n, o, m, 1e-3)
                 info = info + i
         if settings["anchor_gauge"]:
             h, w = depths.shape[1:]
+            g = (h // step) * (w // step)
             obs, mask, lm, nrm = associate(depths, cam_k, rot, trans, step,
                                            err, ns)
-            rot, trans, i = anchor_gauge(rot, trans, obs, mask, lm, nrm,
-                                         (h // step) * (w // step))
+            if order is not None:
+                obs, mask, lm, nrm = _reorder(order, obs, mask, lm, nrm, g)
+            rot, trans, i = anchor_gauge(rot, trans, obs, mask, lm, nrm, g)
             info = info + i
     if int(info) != 0:
         raise Singular(f"the reference registration met a singular "

@@ -19,8 +19,8 @@ import slc_tpu_torch.metrics as pmetrics
 PROGRAM = ("program_span", "program_counter")
 #: Work the CPU path does not do: nothing to wait for, no kernel to
 #: prepare, a staging copy that starts at once.
-ZERO_ON_CPU = {"stream.fetch_wait_ms", "track.step_prep_ms",
-               "stage.fn_delay_ms"}
+ZERO_ON_CPU = {"stream.fetch_wait_ms", "stream.fetch_wait_ms.track",
+               "track.step_prep_ms", "stage.fn_delay_ms"}
 
 
 @pytest.fixture(scope="module")
@@ -39,7 +39,7 @@ def test_a_traced_run_reads_the_programs_spans(tiny, cell):
     pmetrics.reset()
     out = small.run(tiny, cell, seed=2**31 + 5, seconds=0.4, trace=True)
     want = _program_metrics(tiny, cell)
-    assert want == ({"stream.put_host_ms", "stream.fetch_wait_ms",
+    assert want == ({"stream.put_host_ms", "stream.fetch_wait_ms.track",
                      "track.step_host_ms", "track.step_prep_ms",
                      "setup.lock_window_ms", "setup.period_ms",
                      "stage.fn_delay_ms", "stage.host_copy_ms"}

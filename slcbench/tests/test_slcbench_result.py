@@ -35,7 +35,8 @@ def test_result_line(tiny, cell, trace):
             for m in harness.cell_metrics(bench, cell, trace)}
     got = {k: v["unit"] for k, v in out["metrics"].items()}
     # On the CPU the device metrics find nothing to read.
-    device = {"device.idle_pct", "dynamic_step_roofline",
+    device = {"device.idle_pct", "device.idle_pct.track",
+              "kernel_ms_per_map", "dynamic_step_roofline",
               "grayphase_roofline", "heterodyne_roofline"}
     assert got == {k: u for k, u in want.items() if k not in device}
     for v in out["metrics"].values():
@@ -62,3 +63,25 @@ def test_run_exits_without_a_card():
          "--trace", "0"], capture_output=True, text=True, timeout=300,
         cwd=root)
     assert out.returncode != 0 and out.stdout.strip() == ""
+
+
+def test_device_end_to_end_reads_kernels_over_maps():
+    """``kernel_ms_per_map`` is the kernels' device time over the maps
+    (copies left out); ``track.maps_per_s`` the maps over the window's
+    wall time; neither reads without its trace or window."""
+    from slcbench import trace as tracemod
+    tr = tracemod.Trace(window_s=1.0, busy_s=0.5,
+                        kernels={"a": (3, 0.002), "b": (1, 0.001)},
+                        device_ops={"a": 0.002, "b": 0.001,
+                                    "Memcpy HtoD": 0.4},
+                        idle_by_span={})
+    run = harness.Run(config={}, latencies_s=[1e-3] * 3, spans={},
+                      trace=tr, hbm_bytes_per_s=None, wall_s=0.5)
+    kernels = harness.load_module(harness.HERE, "metrics",
+                                  "kernel_ms_per_map")
+    rate = harness.load_module(harness.HERE, "metrics", "track.maps_per_s")
+    assert kernels.read(run) == pytest.approx(1.0)
+    assert rate.read(run) == pytest.approx(6.0)
+    bare = harness.Run(config={}, latencies_s=[1e-3] * 3, spans={},
+                       trace=None, hbm_bytes_per_s=None)
+    assert kernels.read(bare) is None and rate.read(bare) is None

@@ -3,20 +3,26 @@
 that the camera keeps the reference rig's ~94 degrees) through
 ``slcbench_small``'s copy of the benchmark, run by the ``sweep`` driver;
 a registration that keeps its initial poses fails the check; the traced
-run's per-layer metrics; ``register_scans_roofline``'s byte count. On
-the card: both controls, the reference in bfloat16 and with TF32 matrix
-products, fail the cell's check at its own size (run with ``python -m
-pytest slcbench/tests -q --noconftest -m cuda``)."""
+run's per-layer metrics; ``register_scans_roofline``'s byte count; the
+order control (the reference against itself summed in another order)
+and ``calibrate.py --order-seeds``. On the card: both controls, the
+reference in bfloat16 and with TF32 matrix products, fail the cell's
+check at its own size, and the order control reads under the pose
+gap's limit (run with ``python -m pytest slcbench/tests -q --noconftest
+-m cuda``)."""
 
+import io
 import json
+import math
 import os
+from contextlib import redirect_stdout
 
 import pytest
 import torch
 
 import slc_tpu_torch.fusion_frontend as front
 import slcbench_small as small
-from slcbench import harness
+from slcbench import calibrate, harness
 
 REAL = "dynaframe_1024x1280_fuse16.sweep16"
 VIEWS = 8
@@ -49,7 +55,7 @@ def make(tmp) -> str:
     b["workloads"].append({"name": CELL, "config": "tiny_fuse",
                            "traffic": "tiny_sweep", "chips": 1,
                            "why": "test size"})
-    for m in b["per_layer"]:
+    for m in b["end_to_end"] + b["per_layer"]:
         if REAL in m.get("workloads", ()):
             m["workloads"] = m["workloads"] + [CELL]
     ck = harness.load_json(os.path.join(d, "checks", REAL + ".json"))
@@ -144,15 +150,73 @@ def test_register_scans_roofline_reads_busy_time():
     assert reader.read(run) is None
 
 
+def _driver(root, d, name, seed, device):
+    """Cell ``name`` of the BENCHMARK.json in ``root``, its files in ``d``,
+    and its driver."""
+    bench = harness.load_json(os.path.join(root, "BENCHMARK.json"))
+    c = harness.make_cell(bench, d, name, seed, device,
+                          harness.Spans(False, lambda: None))
+    return c, harness.make_driver(c, d)
+
+
+def test_the_order_control_reads_the_sum_order_spread(tiny):
+    """Permuted landmarks give a finite gap of a float32 rounding's size
+    on each sweep's first job; the identity permutation gives the
+    reference's own registration to the bit."""
+    torch.set_num_threads(2)
+    c, drv = _driver(tiny, tiny, CELL, 2**31 + 4099, "cpu")
+    drv.prepare()
+    got = drv.order_control()
+    assert len(got["gaps"]) == len(drv.sweeps) == 2
+    assert math.isfinite(got["fuse_pose_gap"])
+    assert got["fuse_pose_gap"] == max(got["gaps"])
+    assert got["fuse_pose_gap"] < c.checks["limits"]["fuse_pose_gap"][
+        "limit"]
+    same = drv.order_control(order=lambda n: torch.arange(n))
+    assert same == {"fuse_pose_gap": 0.0, "gaps": [0.0, 0.0]}
+
+
+def test_calibrate_prints_one_line_per_order_seed(tiny, monkeypatch):
+    torch.set_num_threads(2)
+    monkeypatch.setattr(calibrate, "ROOT", tiny)
+    monkeypatch.setattr(calibrate, "BENCH_DIR", tiny)
+    out = io.StringIO()
+    with redirect_stdout(out):
+        assert calibrate.main(["--workload", CELL, "--order-seeds", "5,6",
+                               "--device", "cpu"]) == 0
+    lines = [json.loads(x) for x in out.getvalue().splitlines()]
+    assert [(x["kind"], x["seed"]) for x in lines] == [("order", 5),
+                                                      ("order", 6)]
+    for x in lines:
+        assert math.isfinite(x["fuse_pose_gap"]) and len(x["gaps"]) == 2
+
+
+def test_calibrate_refuses_order_seeds_where_the_driver_has_none(
+        tiny, monkeypatch):
+    monkeypatch.setattr(calibrate, "ROOT", tiny)
+    monkeypatch.setattr(calibrate, "BENCH_DIR", tiny)
+    with pytest.raises(SystemExit):
+        calibrate.main(["--workload", "tiny_gray.scan", "--order-seeds",
+                        "5", "--device", "cpu"])
+
+
+@pytest.mark.cuda
+def test_the_order_control_reads_under_the_limit_at_the_cells_size():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    c, drv = _driver(os.path.dirname(harness.HERE), harness.HERE, REAL,
+                     2**31 + 12, "cuda")
+    drv.prepare()
+    got = drv.order_control()["fuse_pose_gap"]
+    assert 0.0 <= got <= c.checks["limits"]["fuse_pose_gap"]["limit"]
+
+
 @pytest.mark.cuda
 def test_both_controls_fail_at_the_cells_size():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    bench = harness.load_json(os.path.join(os.path.dirname(harness.HERE),
-                                           "BENCHMARK.json"))
-    c = harness.make_cell(bench, harness.HERE, REAL, 2**31 + 11, "cuda",
-                          harness.Spans(False, lambda: None))
-    drv = harness.make_driver(c, harness.HERE)
+    c, drv = _driver(os.path.dirname(harness.HERE), harness.HERE, REAL,
+                     2**31 + 11, "cuda")
     drv.prepare()
     for dt, tf32 in ((torch.bfloat16, False), (torch.float32, True)):
         checked = harness.check_numbers(drv.control(dt, tf32), c.checks)

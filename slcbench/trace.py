@@ -55,8 +55,10 @@ class Trace:
         return bool(self.device_ops)
 
 
-def read(prof) -> Trace:
-    """Reduce a finished ``torch.profiler.profile`` to a Trace."""
+def read(prof, whole: bool = False) -> Trace:
+    """Reduce a finished ``torch.profiler.profile`` to a Trace; with
+    ``whole``, the profile is the window (a profile of the device alone
+    holds no host span to clip to)."""
     events = prof.profiler.kineto_results.events()
     win: Optional[Tuple[int, int]] = None
     spans: List[Tuple[int, int, str]] = []
@@ -75,6 +77,8 @@ def read(prof) -> Trace:
             win = (start, end)
         elif name.startswith(SPAN):
             spans.append((start, end, name[len(SPAN):]))
+    if whole and dev:
+        win = (min(s for s, _, _ in dev), max(e for _, e, _ in dev))
     if win is None:
         raise RuntimeError(f"the profiler holds no {WINDOW!r} span")
     w0, w1 = win
